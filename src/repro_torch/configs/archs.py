@@ -1,0 +1,7 @@
+"""Aggregator for the ported architectures (one module per arch)."""
+from __future__ import annotations
+
+# importing registers each config
+from repro_torch.configs import stablelm_3b  # noqa: F401
+
+ALL_ARCHS = ["stablelm-3b"]

@@ -1,0 +1,203 @@
+"""Configuration system of the PyTorch port.
+
+The port's own copy of the JAX package's ``configs/base.py`` (same fields,
+same defaults, same derived values), so that the two packages describe a
+model with equal objects without importing each other.  Every ported
+architecture gets a ``ModelConfig`` in ``repro_torch.configs.<id>``;
+``repro_torch.configs.get_config(name)`` resolves them.  Configs are frozen
+dataclasses: hashable, safe to share between threads.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts settings (GShard-style einsum dispatch)."""
+
+    num_experts: int
+    top_k: int = 2
+    num_shared_experts: int = 0      # DeepSeek-V2 shared experts
+    d_ff_expert: int = 0             # expert FFN hidden size (0 -> use d_ff)
+    every: int = 1                   # apply MoE every `every`-th layer
+    first_dense: int = 0             # leading dense layers (DeepSeek-V2: 1)
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """State-space / linear-recurrence settings (Mamba, RWKV6)."""
+
+    kind: str = "mamba"              # "mamba" | "rwkv6"
+    d_state: int = 16                # mamba state dim
+    d_conv: int = 4                  # mamba conv width
+    expand: int = 2                  # d_inner = expand * d_model
+    dt_rank: int = 0                 # 0 -> ceil(d_model/16)
+    head_dim: int = 64               # rwkv6 head size
+    chunk_size: int = 128            # chunked-scan block length
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // num_heads
+    # --- attention flavour ---
+    attention: str = "gqa"           # gqa | mla | none
+    mla_kv_lora: int = 512
+    mla_rope_dim: int = 64
+    sliding_window: int = 0          # 0 = full causal attention
+    # --- MoE / SSM / hybrid ---
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid_attn_period: int = 0      # jamba: 1 attention layer per `period`
+    hybrid_block_layers: int = 0     # layers per scanned super-block
+    # --- enc-dec / multimodal frontends (stubs supply embeddings) ---
+    encoder_layers: int = 0          # whisper encoder depth
+    encoder_seq: int = 0             # frames / patches supplied by the stub
+    prefix_embeds: int = 0           # VLM: patch embeddings prepended
+    # --- numerics / misc ---
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    logit_chunk: int = 512           # chunked cross-entropy block
+    attn_chunk: int = 1024           # flash-attention KV block
+    scan_layers: bool = True         # layers stacked along a leading dim (always, in the port)
+    dtype: str = "bfloat16"
+    # --- distribution ---
+    sharding: str = "dp_tp"          # dp_tp | fsdp_tp
+    remat: bool = True               # activation checkpointing per layer
+    # --- §Perf hillclimb knobs (defaults = paper-faithful baseline) ---
+    mamba_fused_y: bool = False      # contract d_state inside the chunk scan
+    moe_shard: str = "edim_dmodel"   # edim_dmodel (baseline) | edim_dff
+    fsdp_unshard_step: bool = False  # ZeRO-1: all-gather params once per step
+    bf16_stream: bool = False        # keep residual/collective tensors bf16
+    mamba_scan_impl: str = "assoc"   # assoc (log-depth) | seq (state carried on chip)
+    seq_parallel: str = ""           # batch axes, e.g. "data": shard the
+                                     # residual stream's S dim over `model`
+    remat_policy: str = "full"       # full | dots (save matmul outputs)
+    use_pallas: str = "auto"         # hand-written kernels: auto (on a CUDA
+                                     # tensor) | always | never
+    # --- provenance ---
+    source: str = ""                 # citation (arXiv / model card)
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // max(self.num_heads, 1))
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // max(self.num_kv_heads, 1)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding/lm_head table rows, padded so the vocab dim shards
+        evenly over the model axis (256 = lcm-friendly for 16-way TP).
+        Logits for the padding columns are masked in the loss."""
+        pad_to = 256
+        return (self.vocab_size + pad_to - 1) // pad_to * pad_to
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    # ---- reduced variant for CPU smoke tests -------------------------------
+    def smoke(self) -> "ModelConfig":
+        """A tiny same-family variant: 2 layers, d_model<=256, <=4 experts."""
+        kw = dict(
+            name=self.name + "-smoke",
+            num_layers=2,
+            d_model=min(self.d_model, 128),
+            num_heads=min(self.num_heads, 4),
+            num_kv_heads=min(self.num_kv_heads, 2),
+            head_dim=32,
+            d_ff=min(self.d_ff, 256),
+            vocab_size=min(self.vocab_size, 512),
+            mla_kv_lora=32,
+            mla_rope_dim=16,
+            logit_chunk=64,
+            attn_chunk=64,
+            encoder_layers=min(self.encoder_layers, 2),
+            encoder_seq=min(self.encoder_seq, 32),
+            prefix_embeds=min(self.prefix_embeds, 8),
+            sliding_window=min(self.sliding_window, 32) if self.sliding_window else 0,
+            remat=False,
+            dtype="float32",
+        )
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                num_shared_experts=min(self.moe.num_shared_experts, 1),
+                d_ff_expert=min(self.moe.d_ff_expert, 128) if self.moe.d_ff_expert else 0,
+            )
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(self.ssm, d_state=8, chunk_size=16, head_dim=16)
+        if self.hybrid_block_layers:
+            kw["num_layers"] = self.hybrid_block_layers  # one super-block
+        return self.replace(**kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned global input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    def smoke(self) -> "InputShape":
+        return InputShape(self.name + "-smoke", min(self.seq_len, 64), 2, self.kind)
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+def production_overrides(cfg: "ModelConfig") -> dict:
+    """The §Perf-validated beyond-paper flags per architecture family
+    (EXPERIMENTS.md §Perf).  Baselines keep defaults; the optimized
+    dry-run sweep (`dryrun --production`) and deployments apply these."""
+    kw: dict = {"attn_chunk": 2048}
+    if cfg.sharding == "fsdp_tp":
+        kw["fsdp_unshard_step"] = True
+    if cfg.ssm is not None and cfg.ssm.kind == "mamba":
+        kw["mamba_fused_y"] = True
+    if cfg.moe is not None:
+        kw["moe_shard"] = "edim_dff"
+    return kw
+
+
+@dataclass(frozen=True)
+class CommConfig:
+    """The paper's technique as a first-class runtime feature.
+
+    Controls how gradients are synchronised across the data-parallel axes:
+    Horovod-style fusion buckets, hierarchical (in-pod / cross-pod)
+    collectives, and optional gradient compression.
+    """
+
+    fusion_buffer_mb: float = 64.0   # paper's fusion buffer size
+    timeout_ms: float = 5.0          # paper's fusion timeout (simulator only)
+    hierarchical: bool = True        # in-node RS -> cross-node AR -> in-node AG
+    compression: str = "none"        # none | fp16 | int8 | ternary | topk
+    topk_ratio: float = 0.01         # kept fraction for topk
+    mode: str = "auto"               # auto (no explicit sync) | explicit (sync_grads)
+    scheduler: str = "fifo"          # comm schedule: fifo | priority | chunked
+    sched_chunks: int = 4            # chunks/bucket for the pipelined schedulers

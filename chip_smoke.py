@@ -8,22 +8,31 @@ CUDA toolkit:
 
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc``, holds each against its plain PyTorch version on the card
-(edge shapes and the shapes the trainer gives it), times kernel, plain
+(edge shapes and the shapes the main paths give it), times kernel, plain
 version, memory/compute bound and a library yardstick, checks the K = 4
-gradient sync against a float64 mean, and then drives the port's main path
-through its entry point: ``repro_torch.launch.train.main`` on stablelm-3b
-at full width (bf16, S = 4096, batch 1, explicit comm, int8 compression,
-AdamW), followed by the same run on the plain versions and two ternary
-steps.  Launch counters, reset right before each trainer run and read right
-after, show that the run went through the kernels.
+gradient sync against a float64 mean, and then drives the port's paths
+through their entry points:
+
+- ``repro_torch.launch.train.main`` on stablelm-3b at full width (bf16,
+  S = 4096, batch 1, explicit comm, int8 compression, AdamW), the same run
+  on the plain versions, and two ternary steps;
+- ``repro_torch.launch.serve.main`` on stablelm-3b and on rwkv6-1.6b at full
+  width and depth (batch 4, prompt 4096, 32 generated tokens), each held
+  against a run on the plain versions;
+- the trainer with ``--compression topk`` (stablelm-3b) and the trainer on
+  rwkv6-1.6b (int8), 8 layers each.
+
+Launch counters, reset right before each run and read right after, show
+that the run went through the kernels.
 
 Any failed phase raises, so the exit code is non-zero and the closing JSON
 lines are not printed.  Without a CUDA device it exits non-zero at once.
-``--layers N`` cuts the depth of the trainer runs (default: the model's 32).
+``--layers N`` cuts the depth of the int8 trainer run (default: the model's 32).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -41,12 +50,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import CommConfig, get_config  # noqa: E402
+from repro_torch.configs import INPUT_SHAPES, CommConfig, InputShape, get_config  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attn as fl  # noqa: E402
 from repro_torch.kernels import fused_add as fa  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
-from repro_torch.launch import train  # noqa: E402
+from repro_torch.kernels import topk_mask as tm  # noqa: E402
+from repro_torch.kernels import wkv as wk  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.parallel.collectives import InProcessWorld  # noqa: E402
 from repro_torch.parallel.grad_sync import make_plan, sync_grads_per_rank  # noqa: E402
@@ -54,6 +66,7 @@ from repro_torch.parallel.grad_sync import make_plan, sync_grads_per_rank  # noq
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense tensor-core rate, bf16
+F32_FLOPS = 67e12                  # CUDA cores, f32
 CSRC = "src/repro_torch/kernels/csrc/"
 
 
@@ -247,6 +260,114 @@ def phase_flash() -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib}
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def phase_topk(R_main: int) -> dict:
+    print("[2d] topk_mask_2d vs plain (tolerance: equal bit for bit)")
+    for i, (R, C, dtype) in enumerate([(64, 256, torch.float32), (3, 7, torch.float32),
+                                       (1, 1, torch.float32), (5, 3, torch.bfloat16),
+                                       (65, 256, torch.bfloat16), (129, 256, torch.bfloat16)]):
+        x = randn(R, C, seed=300 + i, dtype=dtype)
+        if x.numel() > 1:
+            x.view(-1)[1] = float("nan")                  # |NaN| >= thr is false: masked to 0
+        amax = float(x.float().nan_to_num(0.0).abs().max())
+        for thr in (0.0, 0.5, amax, amax + 1.0):          # keep all, some, the max only, none
+            t = torch.tensor(thr, device=DEV)
+            out, ref = tm.topk_mask_2d(x, t), tm.topk_mask_2d_plain(x, t)
+            torch.cuda.synchronize()
+            check(torch.equal(_bits(out), _bits(ref)), f"topk_mask_2d differs at {(R, C)} {dtype} thr={thr}")
+            if thr > amax:
+                check(not bool(out.float().abs().gt(0).any()), "a threshold above the max kept something")
+    for n in (999, 2 * 256 + 17, 100_003):                 # ragged n through the 1-D wrapper
+        v = randn(n, seed=n)
+        a = ops.topk_sparsify(v, 0.01, sample=1 << 14)
+        b = ops.topk_sparsify(v, 0.01, sample=1 << 14, use_kernel=False)
+        check(torch.equal(_bits(a), _bits(b)) and a.shape == v.shape, f"topk_sparsify differs at n={n}")
+    x = randn(R_main, 256, seed=310) * 1e-3
+    n = x.numel()
+    thr = ops.topk_threshold(x.view(-1)[::n // (1 << 14)], 0.01)   # as grad sync samples it
+    out, ref = tm.topk_mask_2d(x, thr), tm.topk_mask_2d_plain(x, thr)
+    torch.cuda.synchronize()
+    check(torch.equal(_bits(out), _bits(ref)), "topk_mask_2d differs at the largest bucket")
+    kept = int((out != 0).sum())
+    del out, ref
+    ms = time_ms(lambda: tm.topk_mask_2d(x, thr))
+    plain_ms = time_ms(lambda: tm.topk_mask_2d_plain(x, thr), reps=3, warmup=1)
+    nbytes = 2 * 4 * n                                    # f32 read once, written once
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  largest stablelm-3b bucket R={R_main} f32: equal, {kept} of {n} kept; kernel {ms:.3f} ms "
+          f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms (bytes)")
+    return {"name": "topk_mask_2d", "route": "cuda", "source": CSRC + "topk_mask.cu",
+            "replaces": "src/repro/kernels/topk_mask.py:31", "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
+def wkv_inputs(B, H, S, hd, seed, model_decay=False):
+    r, k, v = (randn(B, H, S, hd, seed=seed + i) * 0.5 for i in range(3))
+    if model_decay:
+        # the model's init: per-channel w0 from -6 (slow) to -1 (fast) plus a small data term
+        ratio = torch.arange(H * hd, device=DEV, dtype=torch.float32).reshape(H, hd) / (H * hd - 1)
+        w0 = -6.0 + 5.0 * ratio ** 0.7
+        logw = -torch.exp(w0[None, :, None, :] + 0.1 * randn(B, H, S, hd, seed=seed + 3))
+    else:
+        logw = -torch.exp(randn(B, H, S, hd, seed=seed + 3) * 0.5 - 2.0)
+    u = randn(H, hd, seed=seed + 4) * 0.1
+    s0 = randn(B, H, hd, hd, seed=seed + 5) * 0.1
+    return r, k, v, logw, u, s0
+
+
+def wkv_err(got, want) -> float:
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+def phase_wkv() -> dict:
+    print("[2e] wkv vs its plain chunked form (tolerance rtol = atol = 1e-4: f32 sums in another "
+          "order, and the chunked form clips each pairwise decay at exp(-60) where the "
+          "recurrence underflows)")
+    for B, H, S, hd, chunk in [(2, 8, 64, 16, 16),       # rwkv6-1.6b smoke
+                               (2, 8, 37, 16, 16),       # ragged S
+                               (1, 4, 192, 64, 64), (2, 3, 100, 128, 32), (1, 2, 50, 8, 16),
+                               (4, 32, 1, 64, 128)]:     # one decode step
+        args = wkv_inputs(B, H, S, hd, seed=B * 100 + S + hd)
+        err = wkv_err(wk.wkv(*args), wk.wkv_plain(*args, chunk=chunk))
+        print(f"  (B,H,S,hd)=({B},{H},{S},{hd}): max abs err {err:.2e}")
+    # state chain: two half-sequence calls equal one call over the whole
+    r, k, v, logw, u, s0 = wkv_inputs(1, 4, 512, 64, seed=7, model_decay=True)
+    y, s = wk.wkv(r, k, v, logw, u, s0)
+    h = 256
+    y1, s1 = wk.wkv(r[:, :, :h], k[:, :, :h], v[:, :, :h], logw[:, :, :h], u, s0)
+    y2, s2 = wk.wkv(r[:, :, h:], k[:, :, h:], v[:, :, h:], logw[:, :, h:], u, s1)
+    err = wkv_err((torch.cat([y1, y2], dim=2), s2), (y, s))
+    print(f"  state chain, 2 x 256 = 512 steps: max abs err {err:.2e}")
+    # the model's layout, read through a transpose
+    tr = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (r, k, v, logw)]
+    err = wkv_err(wk.wkv(*tr, u, s0), (y, s))
+    print(f"  (B,S,H,hd) layout through strides: max abs err {err:.2e}")
+
+    B, H, S, hd = 4, 32, 4096, 64                        # rwkv6-1.6b serving: batch 4, prompt 4096
+    args = wkv_inputs(B, H, S, hd, seed=11, model_decay=True)
+    got, want = wk.wkv(*args), wk.wkv_plain(*args, chunk=128)
+    err = wkv_err(got, want)
+    del got, want
+    ms = time_ms(lambda: wk.wkv(*args))
+    plain_ms = time_ms(lambda: wk.wkv_plain(*args, chunk=128), reps=3, warmup=1)
+    n = B * H * S * hd
+    nbytes = 4 * (5 * n + 2 * B * H * hd * hd + H * hd)  # r, k, v, logw, y; s0, s_out; u
+    flops = 4.0 * hd * n                                 # y and the state update, per element
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    print(f"  serving shape (B,H,S,hd)=({B},{H},{S},{hd}) f32: max abs err {err:.2e}, kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.3f} ms "
+          f"(bytes {t_bytes:.3f}, f32 operations {t_ops:.3f})")
+    return {"name": "wkv", "route": "cuda", "source": CSRC + "wkv.cu",
+            "replaces": "src/repro/kernels/wkv.py:78", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: K = 4 gradient sync
 # ---------------------------------------------------------------------------
@@ -343,10 +464,116 @@ def phase_ternary(layers: int) -> dict:
     return counts
 
 
+def phase_topk_trainer(layers: int) -> dict:
+    print(f"[9] trainer, --compression topk (ratio 0.01), stablelm-3b, {layers} layers, S = 4096, "
+          f"batch 1, 2 steps")
+    result, counts = run_trainer(trainer_args("topk", 2, layers))
+    cfg_run = get_config("stablelm-3b").replace(num_layers=layers)
+    plan, _ = make_plan(get_model(cfg_run).init(None, device="meta"), 64.0)
+    print(f"  losses {result['losses']}; median step {result['median_step_s']:.3f} s; "
+          f"{plan.n_buckets} buckets; launches {counts}")
+    check(all(math.isfinite(x) for x in result["losses"]), "a loss is not finite")
+    check(counts["topk_mask_2d"] == counts["fused_add_2d"] == plan.n_buckets * 2,
+          f"expected one top-k mask and one fused add per bucket and step ({plan.n_buckets} x 2)")
+    return counts
+
+
+def phase_rwkv_trainer(layers: int) -> dict:
+    steps = 2
+    print(f"[10] trainer, rwkv6-1.6b full width, {layers} of 24 layers, S = 4096, batch 1, explicit "
+          f"comm, int8, {steps} steps (WKV backward: recompute through the chunked form)")
+    result, counts = run_trainer(["--arch", "rwkv6-1.6b", "--shape", "train_4k", "--batch", "1",
+                                  "--steps", str(steps), "--comm-mode", "explicit",
+                                  "--compression", "int8", "--log-every", "1",
+                                  "--layers", str(layers)])
+    losses = result["losses"]
+    print(f"  losses {losses}; median step {result['median_step_s']:.3f} s, peak memory "
+          f"{result['peak_gib']:.1f} GiB; launches {counts}")
+    check(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    check(abs(losses[0] - math.log(65536)) <= 0.5, f"step-0 loss {losses[0]} not near ln 65536 = 11.09")
+    # forward and the remat recompute of every layer, every step
+    check(counts["wkv"] == layers * steps * 2, f"expected {layers * steps * 2} wkv launches")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: serving through its entry point
+# ---------------------------------------------------------------------------
+
+def run_serve(argv: list) -> tuple:
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    result = serve.main(argv)
+    counts = dict(build.launch_counts)
+    torch.cuda.synchronize()
+    result["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return result, counts
+
+
+def prefill_logits(arch: str, B: int, P: int, **overrides) -> torch.Tensor:
+    """The next-token logits of ``serve.run``'s prefill (its seed-0
+    parameters and prompts), through the model API with config overrides."""
+    cfg = get_config(arch).replace(**overrides)
+    api = get_model(cfg)
+    params = api.init(torch.Generator(device=DEV).manual_seed(0))
+    base = INPUT_SHAPES["prefill_32k"].smoke()
+    shape = InputShape(base.name, max(P, base.seq_len), base.global_batch, base.kind)
+    prompt = SyntheticLM(cfg, shape, seed=0).batch(0, batch_size=B)["tokens"][:, :P]
+    with torch.inference_mode():
+        logits, _ = api.prefill(params, {"tokens": torch.from_numpy(prompt).to(DEV)})
+    return logits[:, -1].float().cpu()
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def phase_serve(tag: str, arch: str, kernel: str, per_layer_launches, other_order: dict) -> dict:
+    """Serve ``arch`` through ``serve.main``; returns the launch counts."""
+    B, P, G = 4, 4096, 32
+    cfg = get_config(arch)
+    print(f"[{tag}] serving {arch} at full width and depth ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, bf16): batch {B}, prompt {P}, {G} generated tokens")
+    argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(P)]
+    res, counts = run_serve(argv + ["--gen", str(G)])
+    print(f"  prefill {res['prefill_s']:.3f} s, decode {res['decode_ms_per_token']:.2f} ms/token, "
+          f"{res['decode_tok_per_s']:.1f} tokens/s, peak memory {res['peak_gib']:.1f} GiB; "
+          f"launches {counts}")
+    expect = cfg.num_layers * per_layer_launches(G)
+    check(counts[kernel] == expect, f"expected {expect} {kernel} launches, got {counts[kernel]}")
+    check(all(c == 0 for name, c in counts.items() if name != kernel), "serving launched a codec kernel")
+    check(res["tokens"].shape == (B, G + 1), "wrong number of generated tokens")
+    logits = torch.from_numpy(res["prefill_logits"])
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+
+    print("  the same seed on the plain versions (--use-pallas never), 2 generated tokens")
+    ref, ref_counts = run_serve(argv + ["--gen", "2", "--use-pallas", "never"])
+    check(all(c == 0 for c in ref_counts.values()), "the plain run launched a kernel")
+    want = torch.from_numpy(ref["prefill_logits"])
+    print(f"  plain run: prefill {ref['prefill_s']:.3f} s, decode {ref['decode_ms_per_token']:.2f} "
+          f"ms/token, peak {ref['peak_gib']:.1f} GiB")
+    # A bf16 model amplifies f32 rounding noise with depth and sequence, so
+    # the yardstick is the plain path's own spread: the same plain path with
+    # another summation order (the chunk size halved), same parameters and
+    # prompts.  The kernel run may not stray further than twice that.
+    same = prefill_logits(arch, B, P, use_pallas="never")
+    check(torch.equal(same, want), "the model-API prefill does not reproduce serve.run's")
+    spread = rel_l2(prefill_logits(arch, B, P, use_pallas="never", **other_order), want)
+    rel = rel_l2(logits, want)
+    agree = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"  prefill logits, kernels vs plain: rel L2 {rel:.3e}, max abs "
+          f"{float((logits - want).abs().max()):.3e}, argmax agrees on {agree:.2f} of the batch; "
+          f"plain vs plain with {other_order}: rel L2 {spread:.3e} (tolerance: kernels within "
+          f"2x that spread)")
+    check(rel <= 2 * spread, f"{arch}: kernel and plain prefill logits disagree beyond the plain spread")
+    return counts
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--layers", type=int, default=32, help="depth of the trainer runs")
-    ap.add_argument("--ternary-layers", type=int, default=8)
+    ap.add_argument("--layers", type=int, default=32, help="depth of the int8 trainer run")
+    ap.add_argument("--ternary-layers", type=int, default=8,
+                    help="depth of the ternary, topk and rwkv6 trainer runs")
     args = ap.parse_args()
     t_start = time.time()
 
@@ -358,7 +585,8 @@ def main() -> None:
           f"cuda {torch.version.cuda}")
     t0 = time.time()
     build.library(verbose=False)
-    print(f"[1] kernels built with nvcc for sm_90a from {CSRC} in {time.time() - t0:.1f} s (set-up)")
+    print(f"[1] kernels built with nvcc for sm_90a from {CSRC} ({', '.join(build.SOURCES)}) in "
+          f"{time.time() - t0:.1f} s (set-up)")
 
     cfg = get_config("stablelm-3b")
     R_main = cfg.num_layers * cfg.d_model * cfg.d_ff // 256      # blocks.mlp.wi, the largest bucket
@@ -366,17 +594,35 @@ def main() -> None:
     rows = phase_quantizers(R_main)
     rows.append(phase_fused_add(R_main * 256))
     rows.append(phase_flash())
+    rows.append(phase_topk(R_main))
+    rows.append(phase_wkv())
     torch.cuda.empty_cache()
     phase_grad_sync()
     trained = phase_trainer(args.layers)
     ternary_counts = phase_ternary(args.ternary_layers)
+    phase_serve("7", "stablelm-3b", "flash_attention", lambda gen: 1, {"attn_chunk": 512})
+    rwkv_cfg = get_config("rwkv6-1.6b")
+    rwkv_counts = phase_serve("8", "rwkv6-1.6b", "wkv", lambda gen: 1 + gen,
+                              {"ssm": dataclasses.replace(rwkv_cfg.ssm, chunk_size=64)})
+    # in float32 the spread is gone: the kernel path against the plain one
+    f32_k = prefill_logits("rwkv6-1.6b", 2, 4096, dtype="float32")
+    f32_p = prefill_logits("rwkv6-1.6b", 2, 4096, dtype="float32", use_pallas="never")
+    rel = rel_l2(f32_k, f32_p)
+    print(f"  float32 model, batch 2, prompt 4096: prefill logits kernels vs plain rel L2 {rel:.3e} "
+          f"(tolerance 1e-3: f32, summation order only)")
+    check(rel <= 1e-3, "rwkv6-1.6b float32: kernel and plain prefill logits disagree")
+    topk_counts = phase_topk_trainer(args.ternary_layers)
+    phase_rwkv_trainer(args.ternary_layers)
 
+    # each kernel's launches on the path that runs it: ternarize on the
+    # ternary trainer run, topk_mask on the topk run, wkv on rwkv6 serving,
+    # the others on the int8 trainer run
+    paths = {"ternarize_2d": ternary_counts, "topk_mask_2d": topk_counts,
+             "wkv": rwkv_counts}
     for row in rows:
-        # ternarize_2d is on the ternary trainer run's path, the others on the int8 run's
-        source = ternary_counts if row["name"] == "ternarize_2d" else trained["counts"]
-        row["launches"] = source[row["name"]]
-        check(row["launches"] > 0, f"{row['name']} was never launched by the trainer")
-    print(f"[6] total {time.time() - t_start:.0f} s")
+        row["launches"] = paths.get(row["name"], trained["counts"])[row["name"]]
+        check(row["launches"] > 0, f"{row['name']} was never launched on its path")
+    print(f"[11] total {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,1 +1,1 @@
-"""Launchers: the trainer (serving follows in a later slice)."""
+"""Launchers: the trainer (``train``) and the serving loop (``serve``)."""

@@ -1,1 +1,1 @@
-"""Model zoo of the port: the dense GQA decoder (other families follow)."""
+"""Model zoo of the port: the dense GQA decoder and RWKV-6 (other families follow)."""

@@ -1,10 +1,10 @@
-"""Grouped-query attention, training path: chunked online-softmax attention
-as plain tensor code, the dispatch to the hand-written flash kernel, and
-the GQA block.
+"""Grouped-query attention: chunked online-softmax attention as plain tensor
+code, the dispatch to the hand-written flash kernel, the GQA block, and
+single-token decode against a ring-buffer KV cache.
 
 Memory discipline: the plain path never materializes an (Sq, Skv) score
-matrix larger than (chunk, chunk) per (batch, kv-head, group).  MLA and the
-decode functions are not ported yet.
+matrix larger than (chunk, chunk) per (batch, kv-head, group).  MLA is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -153,6 +153,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(B, Hq, Sq, v.shape[-1])
 
 
+def decode_attention(q, k, v, valid_mask) -> torch.Tensor:
+    """Single-token attention.  q: (B, Hq, 1, d); k, v: (B, Hkv, S, d);
+    valid_mask: (B, S) bool (ring-buffer slots that hold real tokens)."""
+    B, Hq, _, d = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, d).float() / math.sqrt(d)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, k.float())
+    s = torch.where(valid_mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
+    return out.reshape(B, Hq, 1, d).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # GQA attention block
 # ---------------------------------------------------------------------------
@@ -184,4 +198,32 @@ def gqa_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
                           chunk=cfg.attn_chunk, q_offset=q_offset, cfg=cfg)
     out = out.transpose(1, 2).reshape(B, S, H * hd)
     cache = {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}      # (B, S, KV, hd)
+    return out @ params["wo"], cache
+
+
+def gqa_decode(params: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               cache_index: int, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode.  x: (B, 1, D); cache k/v: (B, W, KV, hd) ring buffer
+    (W = sliding window if set, else max seq); cache_index: count of tokens
+    already written.  The new token's k/v go into slot ``cache_index % W``
+    *in place* (JAX returns an updated copy); the returned cache is the
+    same dict."""
+    B = x.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    W = cache["k"].shape[1]
+    cache_index = int(cache_index)
+    q = (x @ params["wq"]).reshape(B, 1, H, hd).transpose(1, 2)
+    k = (x @ params["wk"]).reshape(B, 1, KV, hd)
+    v = (x @ params["wv"]).reshape(B, 1, KV, hd)
+    pos = torch.tensor([cache_index], device=x.device)           # absolute position
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
+    slot = cache_index % W
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    n_valid = min(cache_index + 1, W)
+    valid = (torch.arange(W, device=x.device) < n_valid)[None, :].expand(B, W)
+    out = decode_attention(q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2), valid)
+    out = out.transpose(1, 2).reshape(B, 1, H * hd)
     return out @ params["wo"], cache

@@ -11,12 +11,12 @@ utilization) reaches a ~100 % scaling factor.  The levers at this layer:
 - **hierarchical all-reduce**: reduce-scatter inside the node over the fast
   links, all-reduce across nodes on the 1/N-sized shard, all-gather inside
   the node;
-- **gradient compression** (paper section 3.2): fp16 / int8 / ternary via
-  the hand-written kernels in ``repro_torch.kernels``, applied per bucket.
-  Quantized buckets are exchanged with all-gather + a local fused reduction
-  (Horovod compression semantics: sums are computed on dequantized values,
-  so compression error does not accumulate across hops).  ``topk`` is not
-  ported yet.
+- **gradient compression** (paper section 3.2): fp16 / int8 / ternary /
+  topk via the hand-written kernels in ``repro_torch.kernels``, applied per
+  bucket.  Compressed buckets are exchanged with all-gather + a local fused
+  reduction (Horovod compression semantics: sums are computed on
+  dequantized values, so compression error does not accumulate across
+  hops).
 
 Collectives go through the small interface of
 ``repro_torch.parallel.collectives``.  Buckets are issued strictly in
@@ -179,9 +179,12 @@ def _compressed_mean(xs: PerRank, comm: CommConfig, world: InProcessWorld,
             out.append(total[:n] / n_total)
         return out
     if comm.compression == "topk":
-        raise NotImplementedError(
-            "compression='topk' needs the top-k mask kernel, which belongs to "
-            "a later slice of the port")
+        # as the reference: the masked bucket travels dense (no sparse payload)
+        sparse = [kops.topk_sparsify(x, comm.topk_ratio, sample=1 << 14, use_kernel=use_kernels)
+                  for x in xs]
+        gathered = world.all_gather(sparse)
+        return [kops.fused_add(g.reshape(n_total, -1), use_kernel=use_kernels) / n_total
+                for g in gathered]
     raise ValueError(comm.compression)
 
 

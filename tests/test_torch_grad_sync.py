@@ -11,6 +11,7 @@ from _torch_port import np32, to_jax, to_torch
 
 from repro.configs import get_config as jget
 from repro.configs.base import CommConfig as JComm
+from repro.kernels import ops as jops
 from repro.models.registry import get_model as jmodel
 from repro.parallel import grad_sync as jgs
 from repro_torch.configs import CommConfig, get_config as tget
@@ -93,6 +94,7 @@ def _grad_tree(seed):
     ("fp16", False, 1e-6),      # the same bf16 rounding, then an exact f32 sum of one row
     ("int8", False, 1e-6),      # the same arithmetic: equal codes and scales
     ("ternary", False, 1e-6),
+    ("topk", False, 1e-7),      # the same threshold and mask, then a sum of one row
 ])
 @pytest.mark.parametrize("fusion_kb", [1, 65536])
 def test_one_rank_sync_equals_jax_sync(compression, hier, tol, fusion_kb):
@@ -176,8 +178,30 @@ def test_buckets_are_issued_in_plan_order(monkeypatch):
 
 
 def test_topk_waits_for_a_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tgs.sync_grads({"a": torch.ones(10)}, InProcessWorld(1), CommConfig(compression="topk"))
+    """topk runs the reference's branch: each rank masks its bucket to the
+    ~1 % largest |x| (threshold from a strided sample of 1 << 14), the dense
+    masked buckets are gathered and summed.
+    K = 4 against the float64 mean of the masked inputs, the masks computed
+    by the JAX package."""
+    K = 4
+    rng = np.random.default_rng(11)
+    per_rank = [{"w": rng.standard_normal((300, 70)).astype(np.float32),
+                 "b": rng.standard_normal((999,)).astype(np.float32)} for _ in range(K)]
+    comm = CommConfig(compression="topk", topk_ratio=0.01)
+    grads = [{k: to_torch(v) for k, v in g.items()} for g in per_rank]
+    plan, _ = tgs.make_plan(grads[0], comm.fusion_buffer_mb)
+    assert plan.n_buckets == 1
+    masked = []
+    for g in per_rank:                                  # the bucket: leaves in tree order, f32
+        bucket = np.concatenate([g["b"].reshape(-1), g["w"].reshape(-1)])
+        masked.append(np.asarray(jops.topk_sparsify(to_jax(bucket), 0.01, sample=1 << 14)))
+    expect = np.mean(np.stack(masked).astype(np.float64), axis=0)
+    out = tgs.sync_grads_per_rank(grads, InProcessWorld(K), comm)
+    for r in range(K):
+        got = np.concatenate([np32(out[r]["b"]).reshape(-1), np32(out[r]["w"]).reshape(-1)])
+        np.testing.assert_allclose(got, expect, rtol=0, atol=1e-6)    # f32 sums of 4 rows
+    kept = sum(int((m != 0).sum()) for m in masked)
+    assert 0.005 * K * expect.size <= kept <= 0.02 * K * expect.size
 
 
 @pytest.mark.parametrize("compression", ["none", "fp16", "int8", "ternary", "topk"])

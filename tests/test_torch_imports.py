@@ -28,7 +28,7 @@ print("BAD", bad)
 _PLAIN_WITHOUT_TOOLCHAIN = r"""
 import shutil, sys
 import torch
-from repro_torch.kernels import build, ops, quantize, fused_add, flash_attn
+from repro_torch.kernels import build, ops, quantize, fused_add, flash_attn, topk_mask, wkv
 x = torch.randn(3, 700)
 q, s, n = ops.quantize_int8(x); t, ts, _ = ops.ternarize(x)
 assert n == 2100 and q.shape == (64, 256) and t.shape == (64, 256)
@@ -37,6 +37,13 @@ quantize.quantize_int8_2d_plain(torch.randn(2, 256)); quantize.ternarize_2d_plai
 fused_add.fused_add_2d_plain(torch.randn(2, 256))
 o = flash_attn.flash_attention_cuda(torch.randn(2, 64, 16), torch.randn(2, 64, 16), torch.randn(2, 64, 16))
 assert o.shape == (2, 64, 16)
+sp = ops.topk_sparsify(x, 0.1, sample=100)
+assert sp.shape == x.shape and int((sp != 0).sum()) > 0
+topk_mask.topk_mask_2d_plain(torch.randn(2, 256), torch.tensor(0.5))
+y, s = wkv.wkv(*(torch.randn(1, 2, 5, 8) for _ in range(4)), torch.zeros(2, 8), torch.zeros(1, 2, 8, 8))
+assert y.shape == (1, 2, 5, 8) and s.shape == (1, 2, 8, 8)
+from repro_torch.launch import serve
+from repro_torch.models import rwkv
 assert build._lib is None, "the library must not be built for CPU tensors"
 assert "triton" not in sys.modules
 print("NVCC", shutil.which("nvcc"))
@@ -98,5 +105,8 @@ def test_every_subpackage_is_a_package_and_sources_ship():
     names = {m.name for m in pkgutil.iter_modules([str(PKG)])}
     assert {"configs", "kernels", "models", "optim", "data", "parallel", "core", "launch"} <= names
     assert {p.name for p in (PKG / "kernels" / "csrc").glob("*.cu")} == {
-        "quantize.cu", "fused_add.cu", "flash_attn.cu"}
+        "quantize.cu", "fused_add.cu", "flash_attn.cu", "topk_mask.cu", "wkv.cu"}
+    from repro_torch.kernels import build
+    assert set(build.SOURCES) == {p.name for p in (PKG / "kernels" / "csrc").glob("*.cu")}
+    assert (PKG / "launch" / "serve.py").exists() and (PKG / "models" / "rwkv.py").exists()
     assert "repro_torch/kernels/_build/" in (REPO / ".gitignore").read_text()

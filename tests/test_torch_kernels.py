@@ -12,11 +12,14 @@ import torch
 from _torch_port import np32, to_jax, to_torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.kernels.flash_attn import flash_attention_pallas
+from repro.kernels.topk_mask import topk_mask_2d as jtopk_mask_2d
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.flash_attn import flash_attention_cuda, flash_attention_plain
 from repro_torch.kernels.quantize import BLOCK
+from repro_torch.kernels.topk_mask import topk_mask_2d, topk_mask_2d_plain
 
 PAD = BLOCK * 64
 SHAPES = [(PAD,), (PAD * 3,), (999,), (1, 1), (123, 45), (BLOCK,), (2 * BLOCK + 17,)]
@@ -80,6 +83,50 @@ def test_fused_add_matches_jax(k, n, dtype):
     assert out_t.dtype == torch.float32 and tuple(out_t.shape) == (n,)
     # f32 accumulation on both sides; only the order of the K additions differs
     np.testing.assert_allclose(np32(out_t), np.asarray(out_j), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("ratio", [0.01, 0.1, 0.5])
+@pytest.mark.parametrize("n", [4096, 100_000])
+@pytest.mark.parametrize("sample", [0, 1 << 10])
+def test_topk_sparsify_matches_jax_bit_for_bit(ratio, n, sample):
+    """The ratios and sizes of tests/test_kernels.py::test_topk_sparsify; the
+    same threshold (k-th largest |x| of the same strided sample) and the
+    same mask, so the outputs are equal."""
+    x = _rand((n,), 2)
+    out_j = jops.topk_sparsify(to_jax(x), ratio, sample=sample)
+    out_t = tops.topk_sparsify(to_torch(x), ratio, sample=sample)
+    np.testing.assert_array_equal(np32(out_t), np.asarray(out_j))
+    kept = int((out_t != 0).sum())
+    if not sample:
+        assert kept == max(int(ratio * n), 1)            # no ties among these floats
+
+
+@pytest.mark.parametrize("shape", [(123, 45), (3, 5, 7), (BLOCK,)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_topk_sparsify_keeps_shape_and_dtype(shape, dtype):
+    x = _rand(shape, 4)
+    out_j = jops.topk_sparsify(to_jax(x, getattr(jnp, dtype)), 0.1)
+    out_t = tops.topk_sparsify(to_torch(x, getattr(torch, dtype)), 0.1)
+    assert tuple(out_t.shape) == shape and out_t.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(np32(out_t), np32(out_j))
+
+
+def test_topk_threshold_and_mask_match_the_reference():
+    x = _rand((5000,), 5)
+    for ratio in (0.001, 0.02, 1.0):
+        thr_t = tops.topk_threshold(to_torch(x), ratio)
+        assert thr_t.dim() == 0 and thr_t.dtype == torch.float32
+        assert float(thr_t) == float(jref.topk_threshold(to_jax(x), ratio))
+    rows = _rand((128, BLOCK), 6)
+    rows[0, :4] = [np.nan, 0.0, -0.0, 1e30]
+    for thr in (0.0, 0.7, np.inf):
+        want = jtopk_mask_2d(to_jax(rows), jnp.float32(thr), interpret=True)
+        got = topk_mask_2d(to_torch(rows), torch.tensor(thr, dtype=torch.float32))   # CPU: plain
+        np.testing.assert_array_equal(np32(got), np.asarray(want))
+        assert not np.isnan(np32(got)).any()              # |NaN| >= thr is false
+    # a Python number works as the threshold, and the dtype is kept
+    bf = to_torch(rows, torch.bfloat16)
+    assert topk_mask_2d_plain(bf, 0.5).dtype == torch.bfloat16
 
 
 def test_ops_pad_unit_and_shapes():
@@ -151,6 +198,10 @@ def test_wrappers_validate_inputs():
     with pytest.raises(ValueError):
         flash_attention_cuda(torch.zeros(4, 64, 32), torch.zeros(3, 64, 32),
                              torch.zeros(3, 64, 32), n_heads=4, n_kv_heads=2)
+    with pytest.raises(ValueError):
+        topk_mask_2d(torch.zeros(10), 0.0)
+    with pytest.raises(ValueError):
+        topk_mask_2d(torch.zeros(4, 4, dtype=torch.float64), 0.0)
 
 
 def test_cpu_path_launches_no_kernel():
@@ -158,4 +209,9 @@ def test_cpu_path_launches_no_kernel():
     tops.quantize_int8(torch.ones(10))
     tops.ternarize(torch.ones(10))
     tops.fused_add(torch.ones(2, 10))
+    tops.topk_sparsify(torch.ones(10), 0.5)
+    from repro_torch.kernels.wkv import wkv
+    wkv(*(torch.zeros(1, 2, 3, 8) for _ in range(4)), torch.zeros(2, 8), torch.zeros(1, 2, 8, 8))
+    assert set(build.launch_counts) == {"quantize_int8_2d", "ternarize_2d", "fused_add_2d",
+                                        "flash_attention", "topk_mask_2d", "wkv"}
     assert all(v == 0 for v in build.launch_counts.values())

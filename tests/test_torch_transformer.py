@@ -99,9 +99,25 @@ def test_convert_round_trip_and_bf16_cast():
 
 
 def test_serving_members_raise_and_other_families_wait():
-    api = tmodel(tget("stablelm-3b").smoke())
-    for member in (api.prefill, api.decode_step, api.cache_spec):
-        with pytest.raises(NotImplementedError, match="serving slice"):
-            member()
+    """The serving members run (their values are held to JAX by
+    tests/test_torch_serve.py); the families not ported raise."""
+    ct = tget("stablelm-3b").smoke()
+    api = tmodel(ct)
+    params = api.init(torch.Generator().manual_seed(0))
+    tokens = to_torch(_batch(ct, 16)["tokens"])
+    with torch.inference_mode():
+        logits, cache = api.prefill(params, {"tokens": tokens})
+        assert tuple(logits.shape) == (2, 1, ct.padded_vocab)
+        assert tuple(cache["blocks"]["k"].shape) == (2, 2, 16, 2, 32)
+        spec = api.cache_spec(2, 20)
+        assert spec["blocks"]["v"] == ((2, 2, 20, 2, 32), torch.float32)
+        cache = {"blocks": {k: torch.cat([v, v.new_zeros(2, 2, 4, 2, 32)], dim=2)
+                            for k, v in cache["blocks"].items()}}
+        step, cache2 = api.decode_step(params, {"tokens": tokens[:, :1]}, cache, 16)
+    assert tuple(step.shape) == (2, 1, ct.padded_vocab) and cache2 is cache
+    assert bool(cache["blocks"]["k"][:, :, 16].any()) and not bool(cache["blocks"]["k"][:, :, 17].any())
+    for family in ("moe", "hybrid"):
+        with pytest.raises(NotImplementedError):
+            tmodel(ct.replace(family=family))
     with pytest.raises(NotImplementedError):
-        tmodel(tget("stablelm-3b").smoke().replace(family="ssm"))
+        tmodel(tget("rwkv6-1.6b").smoke().replace(ssm=ct.ssm))    # an ssm family without rwkv6

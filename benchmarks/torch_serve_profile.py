@@ -2,12 +2,15 @@
 """Where serving time goes in the PyTorch port on the GPU.
 
     PYTHONPATH=src python benchmarks/torch_serve_profile.py [--arch stablelm-3b] \
-        [--batch 4] [--prompt-len 4096] [--gen 8]
+        [--batch 4] [--prompt-len 4096] [--gen 8] [--layers N]
+    PYTHONPATH=src python benchmarks/torch_serve_profile.py --arch jamba-v0.1-52b --layers 8
 
 Runs the serving path of ``repro_torch.launch.serve`` (one prefill, then
-greedy decode steps against the cache) at full width and depth, with
-random seed-0 parameters, and traces the prefill and ``--gen`` decode steps
-separately with ``torch.profiler``: wall time, device kernel time, the
+greedy decode steps against the cache) at full width, with random seed-0
+parameters, at full depth unless ``--layers`` cuts it (jamba-v0.1-52b
+takes a multiple of 8 and does not fit one card at its 32), and traces
+the prefill and ``--gen`` decode steps separately with
+``torch.profiler``: wall time, device kernel time, the
 device's idle share of each window, and the kernels that take most device
 time.  Needs a CUDA device; prints the card's name and power limit beside
 the numbers.
@@ -56,6 +59,8 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=4096)
     ap.add_argument("--gen", type=int, default=8)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0 = the config's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_serve_profile: needs a CUDA device")
@@ -65,6 +70,8 @@ def main() -> None:
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     api = get_model(cfg)
     B, P, G = args.batch, args.prompt_len, args.gen
     params = api.init(torch.Generator(device=device).manual_seed(0))

@@ -17,8 +17,13 @@ through their entry points:
   S = 4096, batch 1, explicit comm, int8 compression, AdamW), the same run
   on the plain versions, and two ternary steps;
 - ``repro_torch.launch.serve.main`` on stablelm-3b and on rwkv6-1.6b at full
-  width and depth (batch 4, prompt 4096, 32 generated tokens), each held
-  against a run on the plain versions;
+  width and depth, and on jamba-v0.1-52b at full width, one super-block of 8
+  layers deep (batch 4, prompt 4096, 32 generated tokens), each held against
+  a run on the plain versions (within twice the plain path's own spread
+  under other summation orders) and, for rwkv6-1.6b and jamba-v0.1-52b, in
+  float32 too;
+- one Mamba mixer of jamba-v0.1-52b at full width in float32, forward and
+  gradients, through the selective-scan kernel against the plain scan;
 - the trainer with ``--compression topk`` (stablelm-3b) and the trainer on
   rwkv6-1.6b (int8), 8 layers each.
 
@@ -33,15 +38,21 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import torch
+# jamba-v0.1-52b serving holds 26.6 GB of weights and 8 GiB tensors: let the
+# allocator grow segments instead of stranding reserved blocks
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
@@ -56,9 +67,12 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attn as fl  # noqa: E402
 from repro_torch.kernels import fused_add as fa  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
+from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.kernels import topk_mask as tm  # noqa: E402
 from repro_torch.kernels import wkv as wk  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.models import mamba as mb  # noqa: E402
+from repro_torch.models.jamba import block_layout as jamba_layout  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.parallel.collectives import InProcessWorld  # noqa: E402
 from repro_torch.parallel.grad_sync import make_plan, sync_grads_per_rank  # noqa: E402
@@ -254,10 +268,38 @@ def phase_flash() -> dict:
     print(f"  (32,4096,80) bf16 causal (trainer): err {err:.3e}, kernel {ms:.3f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
           f"scaled_dot_product_attention {lib:.3f} ms, bound {max(t_ops, t_bytes):.4f} ms")
+    del q, k, v, q4, k4, v4
+    flash_jamba()
     return {"name": "flash_attention", "route": "cuda", "source": CSRC + "flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn.py:84", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib}
+
+
+def flash_jamba() -> None:
+    """jamba-v0.1-52b's attention layer at serving: batch 4, prompt 4096,
+    Hq 32 / Hkv 8, hd 128, bf16, causal."""
+    B, H, KV, S, hd = 4, 32, 8, 4096, 128
+    q, k, v = flash_case(B * H, S, hd, torch.bfloat16, True, H, KV, seed=1234)
+    out = fl.flash_attention_cuda(q, k, v, causal=True, n_heads=H, n_kv_heads=KV)
+    ref = fl.flash_attention_plain(q, k, v, causal=True, n_heads=H, n_kv_heads=KV)
+    check(bool(torch.isfinite(out).all()), "flash output not finite at Jamba's shape")
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+    err = float((out.float() - ref.float()).abs().max())
+    del out, ref
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: fl.flash_attention_cuda(q, k, v, causal=True, n_heads=H, n_kv_heads=KV))
+    plain_ms = time_ms(lambda: fl.flash_attention_plain(q, k, v, causal=True, n_heads=H, n_kv_heads=KV),
+                       reps=3, warmup=1)
+    q4, k4, v4 = q.reshape(B, H, S, hd), k.reshape(B, KV, S, hd), v.reshape(B, KV, S, hd)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True))
+    flops = 4.0 * hd * B * H * (S * (S + 1) / 2)
+    nbytes = 2 * S * hd * (2 * B * H + 2 * B * KV)          # q and o; k and v, bf16
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  (128,4096,128) bf16 causal Hq=32 Hkv=8 (jamba-v0.1-52b serving): err {err:.3e}, "
+          f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention {lib:.3f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+          f"({'operations' if t_ops >= t_bytes else 'bytes'})")
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -366,6 +408,118 @@ def phase_wkv() -> dict:
             "replaces": "src/repro/kernels/wkv.py:78", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+
+
+def ssm_inputs(B, S, n, di, seed, dtype=torch.float32, model_layout=True):
+    """decay, bx, c_t, h0 for ``ss.ssm_scan``, the first two either
+    transposed views of the model's (B, S, di, n) tensors or contiguous (B,
+    S, n, di); decay = exp(dt * -(1..n)) with the model's dt, so that states
+    live up to a thousand steps."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    dt0 = torch.exp(torch.rand(di, generator=g, device=DEV) * math.log(100.0) + math.log(1e-3))
+    bias = dt0 + torch.log(-torch.expm1(-dt0))            # the model's dt_bias
+    dt = F.softplus(torch.randn(B, S, di, generator=g, device=DEV) * 0.5 + bias)
+    shape = (B, S, di, n) if model_layout else (B, S, n, di)
+    dt_b = dt[..., None] if model_layout else dt[:, :, None, :]
+    a = -torch.arange(1, n + 1, device=DEV, dtype=torch.float32)
+    a = a if model_layout else a[:, None]
+    decay = torch.empty(shape, device=DEV)
+    torch.mul(dt_b, a, out=decay).exp_()
+    bx = torch.randn(shape, generator=g, device=DEV).mul_(dt_b).mul_(0.5)
+    c_t = torch.randn(B, S, n, generator=g, device=DEV)
+    h0 = torch.randn(B, di, n, generator=g, device=DEV) * 0.1
+    decay, bx, c_t = (t.to(dtype) for t in (decay, bx, c_t))
+    if model_layout:
+        return decay.transpose(2, 3), bx.transpose(2, 3), c_t, h0.transpose(1, 2)
+    return decay, bx, c_t, h0.transpose(1, 2).contiguous()
+
+
+def ssm_err(got, want) -> float:
+    for a, b in zip(got, want):
+        check(a.dtype == torch.float32 and a.shape == b.shape, "ssm_scan output dtype or shape")
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+def phase_ssm_scan(main_shape=(4, 4096, 16, 8192)) -> dict:
+    print("[2f] ssm_scan vs its plain recurrence (tolerance rtol = atol = 1e-4, the reference's: "
+          "f32 state, fused multiply-adds and a shuffle sum against separate roundings)")
+    for i, (B, S, n, di) in enumerate([(4, 1, 16, 8192),     # one decode step
+                                       (2, 100, 16, 200),    # S and d_inner not multiples of 128
+                                       (1, 300, 16, 96), (3, 64, 8, 130), (2, 50, 12, 64),
+                                       (2, 40, 5, 33)]):
+        for layout in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = ssm_inputs(B, S, n, di, seed=40 + i, dtype=dtype, model_layout=layout)
+                err = ssm_err(ss.ssm_scan(*args), ss.ssm_scan_plain(*args))
+                print(f"  (B,S,n,d_inner)=({B},{S},{n},{di}) {str(dtype).split('.')[-1]} "
+                      f"{'model layout (strided)' if layout else 'contiguous'}: max abs err {err:.2e}")
+    # state chain: two calls that carry h equal one call over both halves
+    decay, bx, c_t, h0 = ssm_inputs(2, 512, 16, 1024, seed=50)
+    y, h = ss.ssm_scan(decay, bx, c_t, h0)
+    y1, h1 = ss.ssm_scan(decay[:, :256], bx[:, :256], c_t[:, :256], h0)
+    y2, h2 = ss.ssm_scan(decay[:, 256:], bx[:, 256:], c_t[:, 256:], h1)
+    err = ssm_err((torch.cat([y1, y2], dim=1), h2), (y, h))
+    print(f"  state chain, 2 x 256 = 512 steps: max abs err {err:.2e}")
+    del decay, bx, c_t, h0
+
+    B, S, n, di = main_shape                                # jamba-v0.1-52b serving
+    args = ssm_inputs(B, S, n, di, seed=51)
+    got, want = ss.ssm_scan(*args), ss.ssm_scan_plain(*args)
+    err = ssm_err(got, want)
+    y_max = float(want[0].abs().max())
+    del got, want
+    ms = time_ms(lambda: ss.ssm_scan(*args))
+    plain_ms = time_ms(lambda: ss.ssm_scan_plain(*args), reps=3, warmup=1)
+    n_state = B * S * n * di
+    nbytes = 4 * (2 * n_state + B * S * di + B * S * n + 2 * B * n * di)   # decay, bx; y; c; h0, h
+    flops = 4.0 * n_state                                   # two FMAs per state element and step
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    print(f"  serving shape (B,S,n,d_inner)=({B},{S},{n},{di}) f32, model layout: max abs err "
+          f"{err:.2e} (|y| up to {y_max:.2f}), kernel {ms:.3f} ms ({nbytes / ms / 1e6:.0f} GB/s), "
+          f"plain {plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
+          f"f32 operations {t_ops:.3f}); library: none (no single PyTorch call)")
+    return {"name": "ssm_scan", "route": "cuda", "source": CSRC + "ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan.py:65", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+
+
+def phase_mamba_mixer(S: int = 4096) -> None:
+    """One Mamba layer of jamba-v0.1-52b at full width in float32: the
+    kernel path against the plain ``assoc`` scan, forward and gradients."""
+    B = 1
+    cfg = get_config("jamba-v0.1-52b").replace(dtype="float32")
+    print(f"[6] Mamba mixer, jamba-v0.1-52b full width (d_model {cfg.d_model}, d_inner "
+          f"{mb.dims(cfg)[0]}, d_state {cfg.ssm.d_state}), float32, batch {B}, prompt {S}: kernel vs "
+          f"use_pallas=never (tolerance: output 1e-4, gradients 1e-3 relative L2; f32, order of sums)")
+    torch.cuda.empty_cache()
+    params = mb.init_mamba(torch.Generator(device=DEV).manual_seed(0), cfg)
+    x = randn(B, S, cfg.d_model, seed=60)
+    cot = randn(B, S, cfg.d_model, seed=61)
+    results = {}
+    for mode in ("auto", "never"):
+        build.reset_launch_counts()
+        xg = x.clone().requires_grad_(True)
+        w_in = params["w_in"].detach().clone().requires_grad_(True)
+        out, state = mb.mamba_mixer({**params, "w_in": w_in}, xg, cfg.replace(use_pallas=mode))
+        gx, gw = torch.autograd.grad(torch.sum(out * cot), (xg, w_in))
+        torch.cuda.synchronize()
+        results[mode] = (out.detach(), state["ssm"].detach(), gx, gw, build.launch_counts["ssm_scan"])
+        del out, state, xg, w_in
+        torch.cuda.empty_cache()
+    check(results["auto"][4] == 1 and results["never"][4] == 0,
+          "expected one ssm_scan launch on the kernel path, none on the plain one")
+    names = ["output", "final state", "d loss / d x", "d loss / d w_in"]
+    tols = [1e-4, 1e-4, 1e-3, 1e-3]
+    for i, (name, tol) in enumerate(zip(names, tols)):
+        a, b = results["auto"][i], results["never"][i]
+        check(bool(torch.isfinite(a).all()), f"mixer {name} not finite")
+        rel = rel_l2(a, b)
+        print(f"  {name}: rel L2 {rel:.3e} (tolerance {tol:.0e})")
+        check(rel <= tol, f"Mamba mixer {name}: kernel and plain disagree")
+    del params, results
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -501,21 +655,31 @@ def phase_rwkv_trainer(layers: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def run_serve(argv: list) -> tuple:
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
     build.reset_launch_counts()
     result = serve.main(argv)
     counts = dict(build.launch_counts)
     torch.cuda.synchronize()
     result["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  device memory held before the run {held:.2f} GiB, after it "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     return result, counts
 
 
-def prefill_logits(arch: str, B: int, P: int, **overrides) -> torch.Tensor:
+def prefill_logits(arch: str, B: int, P: int, layers: int = 0, **overrides) -> torch.Tensor:
     """The next-token logits of ``serve.run``'s prefill (its seed-0
-    parameters and prompts), through the model API with config overrides."""
-    cfg = get_config(arch).replace(**overrides)
+    parameters and prompts, at the depth ``--layers`` gave it), through the
+    model API with config overrides."""
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    cfg = cfg.replace(**overrides)
     api = get_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
     params = api.init(torch.Generator(device=DEV).manual_seed(0))
     base = INPUT_SHAPES["prefill_32k"].smoke()
     shape = InputShape(base.name, max(P, base.seq_len), base.global_batch, base.kind)
@@ -529,20 +693,31 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def phase_serve(tag: str, arch: str, kernel: str, per_layer_launches, other_order: dict) -> dict:
-    """Serve ``arch`` through ``serve.main``; returns the launch counts."""
-    B, P, G = 4, 4096, 32
+SERVE_B, SERVE_P, SERVE_G = 4, 4096, 32
+
+
+def phase_serve(tag: str, arch: str, expect: dict, other_orders: list, layers: int = 0) -> dict:
+    """Serve ``arch`` through ``serve.main`` (``layers`` cuts the depth);
+    ``expect`` holds the launches of each kernel of the path, every other
+    kernel must stay at 0; ``other_orders`` are config overrides that give
+    the plain path another summation order.  Returns the launch counts."""
+    B, P, G = SERVE_B, SERVE_P, SERVE_G
     cfg = get_config(arch)
-    print(f"[{tag}] serving {arch} at full width and depth ({cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, bf16): batch {B}, prompt {P}, {G} generated tokens")
+    depth = (f"full depth ({cfg.num_layers} layers)" if not layers
+             else f"{layers} of {cfg.num_layers} layers")
+    print(f"[{tag}] serving {arch} at full width (d_model {cfg.d_model}, bf16), {depth}: batch {B}, "
+          f"prompt {P}, {G} generated tokens")
     argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(P)]
+    if layers:
+        argv += ["--layers", str(layers)]
     res, counts = run_serve(argv + ["--gen", str(G)])
     print(f"  prefill {res['prefill_s']:.3f} s, decode {res['decode_ms_per_token']:.2f} ms/token, "
           f"{res['decode_tok_per_s']:.1f} tokens/s, peak memory {res['peak_gib']:.1f} GiB; "
           f"launches {counts}")
-    expect = cfg.num_layers * per_layer_launches(G)
-    check(counts[kernel] == expect, f"expected {expect} {kernel} launches, got {counts[kernel]}")
-    check(all(c == 0 for name, c in counts.items() if name != kernel), "serving launched a codec kernel")
+    for kernel, n in expect.items():
+        check(counts[kernel] == n, f"expected {n} {kernel} launches, got {counts[kernel]}")
+    check(all(c == 0 for name, c in counts.items() if name not in expect),
+          "serving launched a kernel off its path (a codec kernel)")
     check(res["tokens"].shape == (B, G + 1), "wrong number of generated tokens")
     logits = torch.from_numpy(res["prefill_logits"])
     check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
@@ -553,21 +728,37 @@ def phase_serve(tag: str, arch: str, kernel: str, per_layer_launches, other_orde
     want = torch.from_numpy(ref["prefill_logits"])
     print(f"  plain run: prefill {ref['prefill_s']:.3f} s, decode {ref['decode_ms_per_token']:.2f} "
           f"ms/token, peak {ref['peak_gib']:.1f} GiB")
-    # A bf16 model amplifies f32 rounding noise with depth and sequence, so
-    # the yardstick is the plain path's own spread: the same plain path with
-    # another summation order (the chunk size halved), same parameters and
-    # prompts.  The kernel run may not stray further than twice that.
-    same = prefill_logits(arch, B, P, use_pallas="never")
+    # A bf16 model amplifies f32 rounding noise with depth and sequence (and
+    # an MoE router turns it into other expert choices), so the yardstick is
+    # the plain path's own spread: the same plain path with other summation
+    # orders (other chunk sizes), same parameters and prompts, the largest
+    # distance of them.  The kernel run may not stray further than twice that.
+    same = prefill_logits(arch, B, P, layers, use_pallas="never")
     check(torch.equal(same, want), "the model-API prefill does not reproduce serve.run's")
-    spread = rel_l2(prefill_logits(arch, B, P, use_pallas="never", **other_order), want)
+    spreads = []
+    for order in other_orders:
+        spreads.append(rel_l2(prefill_logits(arch, B, P, layers, use_pallas="never", **order), want))
+        print(f"  plain vs plain with {order}: rel L2 {spreads[-1]:.3e}")
     rel = rel_l2(logits, want)
     agree = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
     print(f"  prefill logits, kernels vs plain: rel L2 {rel:.3e}, max abs "
-          f"{float((logits - want).abs().max()):.3e}, argmax agrees on {agree:.2f} of the batch; "
-          f"plain vs plain with {other_order}: rel L2 {spread:.3e} (tolerance: kernels within "
-          f"2x that spread)")
-    check(rel <= 2 * spread, f"{arch}: kernel and plain prefill logits disagree beyond the plain spread")
+          f"{float((logits - want).abs().max()):.3e}, argmax agrees on {agree:.2f} of the batch "
+          f"(tolerance: within 2x the plain spread, {max(spreads):.3e})")
+    check(rel <= 2 * max(spreads),
+          f"{arch}: kernel and plain prefill logits disagree beyond the plain spread")
     return counts
+
+
+def check_float32(arch: str, B: int, layers: int = 0) -> None:
+    """In float32 the spread is gone: the kernel path against the plain one,
+    prompt 4096."""
+    f32_k = prefill_logits(arch, B, 4096, layers, dtype="float32")
+    f32_p = prefill_logits(arch, B, 4096, layers, dtype="float32", use_pallas="never")
+    rel = rel_l2(f32_k, f32_p)
+    print(f"  float32 model, batch {B}, prompt 4096: prefill logits kernels vs plain rel L2 {rel:.3e} "
+          f"(tolerance 1e-3: f32, summation order only)")
+    check(rel <= 1e-3, f"{arch} float32: kernel and plain prefill logits disagree")
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -597,32 +788,44 @@ def main() -> None:
     rows.append(phase_topk(R_main))
     rows.append(phase_wkv())
     torch.cuda.empty_cache()
+    rows.append(phase_ssm_scan())
+    torch.cuda.empty_cache()
     phase_grad_sync()
     trained = phase_trainer(args.layers)
     ternary_counts = phase_ternary(args.ternary_layers)
-    phase_serve("7", "stablelm-3b", "flash_attention", lambda gen: 1, {"attn_chunk": 512})
+    phase_serve("7", "stablelm-3b", {"flash_attention": get_config("stablelm-3b").num_layers},
+                [{"attn_chunk": 512}])
     rwkv_cfg = get_config("rwkv6-1.6b")
-    rwkv_counts = phase_serve("8", "rwkv6-1.6b", "wkv", lambda gen: 1 + gen,
-                              {"ssm": dataclasses.replace(rwkv_cfg.ssm, chunk_size=64)})
-    # in float32 the spread is gone: the kernel path against the plain one
-    f32_k = prefill_logits("rwkv6-1.6b", 2, 4096, dtype="float32")
-    f32_p = prefill_logits("rwkv6-1.6b", 2, 4096, dtype="float32", use_pallas="never")
-    rel = rel_l2(f32_k, f32_p)
-    print(f"  float32 model, batch 2, prompt 4096: prefill logits kernels vs plain rel L2 {rel:.3e} "
-          f"(tolerance 1e-3: f32, summation order only)")
-    check(rel <= 1e-3, "rwkv6-1.6b float32: kernel and plain prefill logits disagree")
+    rwkv_counts = phase_serve("8", "rwkv6-1.6b", {"wkv": rwkv_cfg.num_layers * (1 + SERVE_G)},
+                              [{"ssm": dataclasses.replace(rwkv_cfg.ssm, chunk_size=64)}])
+    check_float32("rwkv6-1.6b", 2)
     topk_counts = phase_topk_trainer(args.ternary_layers)
     phase_rwkv_trainer(args.ternary_layers)
+    phase_mamba_mixer()
+    # jamba-v0.1-52b: one super-block at full width (26.6 GB of bf16 weights;
+    # two are 53 GB before any activation, the 32-layer model's 104 GB do not
+    # fit one card).  Per super-block 7 Mamba layers (one scan per prefill and
+    # per decode step) and 1 attention layer (flash in the prefill only)
+    jamba_cfg = get_config("jamba-v0.1-52b")
+    n_mamba = sum(mixer == "mamba" for mixer, _ in jamba_layout(jamba_cfg))
+    jamba_orders = [{"attn_chunk": 512, "ssm": dataclasses.replace(jamba_cfg.ssm, chunk_size=64)},
+                    {"ssm": dataclasses.replace(jamba_cfg.ssm, chunk_size=256)}]
+    jamba_counts = phase_serve("12", "jamba-v0.1-52b",
+                               {"ssm_scan": n_mamba * (1 + SERVE_G),
+                                "flash_attention": jamba_cfg.hybrid_block_layers - n_mamba},
+                               jamba_orders, layers=jamba_cfg.hybrid_block_layers)
+    # 53 GB of float32 weights: batch 1 keeps the plain path under 60 GiB
+    check_float32("jamba-v0.1-52b", 1, layers=jamba_cfg.hybrid_block_layers)
 
     # each kernel's launches on the path that runs it: ternarize on the
     # ternary trainer run, topk_mask on the topk run, wkv on rwkv6 serving,
-    # the others on the int8 trainer run
+    # ssm_scan on jamba serving, the others on the int8 trainer run
     paths = {"ternarize_2d": ternary_counts, "topk_mask_2d": topk_counts,
-             "wkv": rwkv_counts}
+             "wkv": rwkv_counts, "ssm_scan": jamba_counts}
     for row in rows:
         row["launches"] = paths.get(row["name"], trained["counts"])[row["name"]]
         check(row["launches"] > 0, f"{row['name']} was never launched on its path")
-    print(f"[11] total {time.time() - t_start:.0f} s")
+    print(f"[13] total {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

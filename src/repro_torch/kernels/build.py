@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("quantize.cu", "fused_add.cu", "flash_attn.cu", "topk_mask.cu", "wkv.cu")
+SOURCES = ("quantize.cu", "fused_add.cu", "flash_attn.cu", "topk_mask.cu", "wkv.cu",
+           "ssm_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -38,6 +39,7 @@ _SIGNATURES = {
     "repro_topk_mask_f32": [_P, _P, _P, _L, _P],
     "repro_topk_mask_bf16": [_P, _P, _P, _L, _P],
     "repro_wkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P],
+    "repro_ssm_scan": [_P] * 6 + [_I] * 5 + [_L] * 10 + [_P],
 }
 
 _lock = threading.Lock()
@@ -47,7 +49,7 @@ _lib: Optional[ctypes.CDLL] = None
 # it launches its kernel
 launch_counts: Dict[str, int] = {"quantize_int8_2d": 0, "ternarize_2d": 0,
                                  "fused_add_2d": 0, "flash_attention": 0,
-                                 "topk_mask_2d": 0, "wkv": 0}
+                                 "topk_mask_2d": 0, "wkv": 0, "ssm_scan": 0}
 
 
 def reset_launch_counts() -> None:

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/launch/serve.py``: a prefill step over the prompt
 batch and an autoregressive greedy decode loop against the cache (a
-ring-buffer KV cache for the dense decoder, a recurrent state for RWKV-6),
-under ``torch.inference_mode()``.  Reports prefill and per-token decode
+ring-buffer KV cache for the dense decoder, a recurrent state for RWKV-6,
+both for Jamba: K/V in its attention layers, conv and SSM states in its
+Mamba layers), under ``torch.inference_mode()``.  Reports prefill and per-token decode
 latency and throughput (host clock around work that ends in a device
 synchronise).
 
@@ -11,9 +12,12 @@ synchronise).
       --prompt-len 4096 --gen 32 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b --smoke \
       --prompt-len 64 --gen 16 --batch 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --layers 8 \
+      --prompt-len 4096 --gen 32 --batch 4
 
 Like the trainer it runs on ``--device cuda`` (the default) and raises when
-CUDA is not available; ``--layers`` cuts the depth and ``--use-pallas never``
+CUDA is not available; ``--layers`` cuts the depth (Jamba: to a whole number
+of 8-layer super-blocks) and ``--use-pallas never``
 takes the plain versions of every hand-written kernel.  One difference from
 the reference on purpose: JAX always builds its prompts from a 64-token
 sample, so a longer ``--prompt-len`` is silently cut to 64 there; here the
@@ -247,7 +251,8 @@ def serve(args) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-3b")
+    ap.add_argument("--arch", default="stablelm-3b",
+                    help="a ported architecture: stablelm-3b, rwkv6-1.6b or jamba-v0.1-52b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
@@ -265,7 +270,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when there is none) or cpu")
     ap.add_argument("--layers", type=int, default=0,
-                    help="cut the depth to this many layers (0 = the config's)")
+                    help="cut the depth to this many layers (0 = the config's; "
+                         "jamba-v0.1-52b: a multiple of 8)")
     ap.add_argument("--use-pallas", default="", choices=["", "auto", "always", "never"],
                     help="hand-written kernels: auto = on CUDA tensors; never = "
                          "plain versions everywhere (reference runs)")

@@ -95,6 +95,11 @@ def config_from_args(args):
         cfg = cfg.replace(num_layers=args.layers)
     if args.use_pallas:
         cfg = cfg.replace(use_pallas=args.use_pallas)
+    if cfg.hybrid_block_layers and (cfg.num_layers <= 0
+                                    or cfg.num_layers % cfg.hybrid_block_layers):
+        # JAX floors num_layers // hybrid_block_layers and drops the rest
+        raise ValueError(f"{cfg.name}: --layers must be a positive multiple of "
+                         f"{cfg.hybrid_block_layers} (one super-block), got {cfg.num_layers}")
     return cfg
 
 

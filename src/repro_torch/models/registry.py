@@ -8,8 +8,8 @@
     decode_step(params, batch, cache, cache_index) -> (logits, new_cache)
     cache_spec(batch_size, cache_len) -> tree of (shape, dtype) tuples
 
-Ported families: the dense GQA decoder and RWKV-6 (``family="ssm"``,
-``ssm.kind="rwkv6"``).
+Ported families: the dense GQA decoder, RWKV-6 (``family="ssm"``,
+``ssm.kind="rwkv6"``) and Jamba (``family="hybrid"``, Mamba layers).
 """
 from __future__ import annotations
 
@@ -61,6 +61,22 @@ def _ssm_api(cfg: ModelConfig) -> ModelApi:
                     loss_fn, prefill, decode_step, lambda b, w: r.cache_spec(cfg, b))
 
 
+def _hybrid_api(cfg: ModelConfig) -> ModelApi:
+    from repro_torch.models import jamba as j
+
+    def loss_fn(params, batch):
+        return j.loss_fn(params, batch, cfg)
+
+    def prefill(params, batch):
+        return j.prefill(params, batch["tokens"], cfg)
+
+    def decode_step(params, batch, cache, cache_index):
+        return j.decode_step(params, batch["tokens"], cache, cache_index, cfg)
+
+    return ModelApi(cfg, lambda gen, device=None: j.init_model(gen, cfg, device=device),
+                    loss_fn, prefill, decode_step, lambda b, w: j.cache_spec(cfg, b, w))
+
+
 # cache leaves whose dim-2 is the ring-buffer/sequence axis
 _SEQ_CACHE_LEAVES = {"k", "v", "c_kv", "k_rope"}
 
@@ -68,7 +84,8 @@ _SEQ_CACHE_LEAVES = {"k", "v", "c_kv", "k_rope"}
 def pad_cache(cache: Any, new_len: int) -> Any:
     """Grow the ring-buffer (W) axis of a prefill cache to ``new_len`` so
     decode can append tokens.  Recurrent-state leaves (RWKV ``state``,
-    ``tm_x``, ``cm_x``) are untouched (they have no growing axis)."""
+    ``tm_x``, ``cm_x``; Mamba ``conv``, ``ssm``) are untouched (they have no
+    growing axis)."""
 
     def walk(node, name=None):
         if isinstance(node, dict):
@@ -90,5 +107,9 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         return _transformer_api(cfg)
     if cfg.family == "ssm" and cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
         return _ssm_api(cfg)
+    if (cfg.family == "hybrid" and cfg.ssm is not None and cfg.ssm.kind == "mamba"
+            and cfg.hybrid_block_layers > 0):
+        return _hybrid_api(cfg)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (only the dense decoder and RWKV-6 are)")
+        f"family {cfg.family!r} is not ported yet (only the dense decoder, RWKV-6 and "
+        f"Jamba are)")

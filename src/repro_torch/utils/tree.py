@@ -34,22 +34,24 @@ def tree_paths(tree: Any, prefix: str = "") -> List[str]:
             for p in tree_paths(c, f"{prefix}.{k}" if prefix else str(k))]
 
 
+def _build(node: Any, it) -> Any:
+    # a module-level function, not a recursive closure: a closure that names
+    # itself is a reference cycle, and it would keep every leaf alive until
+    # the cycle collector runs (26 GB of weights for a served model)
+    if _is_leaf(node):
+        return next(it)
+    if isinstance(node, dict):
+        built = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: built[k] for k in node}                # keep insertion order
+    children = [_build(c, it) for c in node]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*children)                      # NamedTuple
+    return type(node)(children)
+
+
 def tree_unflatten(like: Any, leaves: Sequence[Any]) -> Any:
     """Rebuild a tree shaped like ``like`` from leaves in flatten order."""
-    it = iter(leaves)
-
-    def build(node):
-        if _is_leaf(node):
-            return next(it)
-        if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}            # keep insertion order
-        children = [build(c) for c in node]
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*children)                  # NamedTuple
-        return type(node)(children)
-
-    return build(like)
+    return _build(like, iter(leaves))
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

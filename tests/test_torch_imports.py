@@ -42,8 +42,17 @@ assert sp.shape == x.shape and int((sp != 0).sum()) > 0
 topk_mask.topk_mask_2d_plain(torch.randn(2, 256), torch.tensor(0.5))
 y, s = wkv.wkv(*(torch.randn(1, 2, 5, 8) for _ in range(4)), torch.zeros(2, 8), torch.zeros(1, 2, 8, 8))
 assert y.shape == (1, 2, 5, 8) and s.shape == (1, 2, 8, 8)
+from repro_torch.kernels import ssm_scan
+y, h = ssm_scan.ssm_scan(torch.rand(1, 5, 16, 8), torch.randn(1, 5, 16, 8), torch.randn(1, 5, 16),
+                         torch.zeros(1, 16, 8))
+assert y.shape == (1, 5, 8) and h.shape == (1, 16, 8)
 from repro_torch.launch import serve
-from repro_torch.models import rwkv
+from repro_torch.models import jamba, mamba, moe, rwkv
+from repro_torch.configs import get_config
+from repro_torch.models.registry import get_model
+api = get_model(get_config("jamba-v0.1-52b").smoke())
+logits, cache = api.prefill(api.init(torch.Generator().manual_seed(0)), {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+assert logits.shape == (1, 1, 512) and set(cache["l0"]) == {"conv", "ssm"}
 assert build._lib is None, "the library must not be built for CPU tensors"
 assert "triton" not in sys.modules
 print("NVCC", shutil.which("nvcc"))
@@ -63,7 +72,7 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     proc = _run(_IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = dict(l.split(" ", 1) for l in proc.stdout.strip().splitlines())
-    assert int(lines["IMPORTED"]) >= 25
+    assert int(lines["IMPORTED"]) >= 30
     assert lines["BAD"] == "[]"
 
 
@@ -105,8 +114,12 @@ def test_every_subpackage_is_a_package_and_sources_ship():
     names = {m.name for m in pkgutil.iter_modules([str(PKG)])}
     assert {"configs", "kernels", "models", "optim", "data", "parallel", "core", "launch"} <= names
     assert {p.name for p in (PKG / "kernels" / "csrc").glob("*.cu")} == {
-        "quantize.cu", "fused_add.cu", "flash_attn.cu", "topk_mask.cu", "wkv.cu"}
+        "quantize.cu", "fused_add.cu", "flash_attn.cu", "topk_mask.cu", "wkv.cu", "ssm_scan.cu"}
     from repro_torch.kernels import build
     assert set(build.SOURCES) == {p.name for p in (PKG / "kernels" / "csrc").glob("*.cu")}
     assert (PKG / "launch" / "serve.py").exists() and (PKG / "models" / "rwkv.py").exists()
+    for name in ("mamba.py", "moe.py", "jamba.py"):
+        assert (PKG / "models" / name).exists(), name
+    assert (PKG / "kernels" / "ssm_scan.py").exists() and (PKG / "configs" / "jamba_v0_1_52b.py").exists()
+    assert build.launch_counts.get("ssm_scan") == 0 and "repro_ssm_scan" in build._SIGNATURES
     assert "repro_torch/kernels/_build/" in (REPO / ".gitignore").read_text()

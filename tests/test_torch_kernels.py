@@ -212,6 +212,8 @@ def test_cpu_path_launches_no_kernel():
     tops.topk_sparsify(torch.ones(10), 0.5)
     from repro_torch.kernels.wkv import wkv
     wkv(*(torch.zeros(1, 2, 3, 8) for _ in range(4)), torch.zeros(2, 8), torch.zeros(1, 2, 8, 8))
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    ssm_scan(torch.ones(1, 3, 4, 8), torch.ones(1, 3, 4, 8), torch.ones(1, 3, 4), torch.zeros(1, 4, 8))
     assert set(build.launch_counts) == {"quantize_int8_2d", "ternarize_2d", "fused_add_2d",
-                                        "flash_attention", "topk_mask_2d", "wkv"}
+                                        "flash_attention", "topk_mask_2d", "wkv", "ssm_scan"}
     assert all(v == 0 for v in build.launch_counts.values())

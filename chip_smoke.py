@@ -13,6 +13,12 @@ version, memory/compute bound and a library yardstick, checks the K = 4
 gradient sync against a float64 mean, and then drives the port's paths
 through their entry points:
 
+- the codec calibration, ``benchmarks/torch_kernel_bench.main`` with
+  ``--calibrate`` at stablelm-3b's largest bucket (566,231,040 f32) gated
+  against the committed ``artifacts/bench/BENCH_codec_h100.json``, and at
+  the reference's 1 MiB; ``AddEst.measure`` on the card; and
+  ``timeline.measure`` on stablelm-3b at full width and depth;
+
 - ``repro_torch.launch.train.main`` on stablelm-3b at full width (bf16,
   S = 4096, batch 1, explicit comm, int8 compression, AdamW), the same run
   on the plain versions, and two ternary steps;
@@ -45,6 +51,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -57,15 +64,19 @@ import torch  # noqa: E402
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+REPO = Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO / "src"))
 
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import INPUT_SHAPES, CommConfig, InputShape, get_config  # noqa: E402
-from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+from repro_torch.core import timeline  # noqa: E402
+from repro_torch.core.addest import H100_LAUNCH_OVERHEAD, AddEst  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM, device_put_batch  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attn as fl  # noqa: E402
 from repro_torch.kernels import fused_add as fa  # noqa: E402
+from repro_torch.kernels import probe as pb  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.kernels import topk_mask as tm  # noqa: E402
@@ -522,6 +533,168 @@ def phase_mamba_mixer(S: int = 4096) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_dequantize(R_main: int) -> dict:
+    print("[2g] dequantize_int8_2d vs plain (tolerance: equal bit for bit, one rounded product)")
+    g = torch.Generator(device=DEV).manual_seed(400)
+    for R in (64, 1):                                     # a tile of rows; one row of a tile
+        q = torch.randint(-128, 128, (R, 256), generator=g, device=DEV, dtype=torch.int8)
+        s = torch.rand(R, 1, generator=g, device=DEV) * 3.0
+        if R == 64:
+            s[3], s[5], s[7], s[9] = 0.0, 1e-30, 1e30, -1.5   # zero, tiny, huge, negative scales
+            q[11] = 127
+            q[12] = -128
+        out, ref = qz.dequantize_int8_2d(q, s), qz.dequantize_int8_2d_plain(q, s)
+        check(torch.equal(_bits(out), _bits(ref)), f"dequantize_int8_2d differs at R={R} (int8 codes)")
+        t, ts = qz.ternarize_2d(randn(R, 256, seed=401 + R))
+        out, ref = qz.dequantize_int8_2d(t, ts), qz.dequantize_int8_2d_plain(t, ts)
+        check(torch.equal(_bits(out), _bits(ref)), f"dequantize_int8_2d differs at R={R} (ternary codes)")
+    for n in (999, 2 * 256 + 17):                         # ragged n through the 1-D wrappers
+        v = randn(n, seed=410 + n)
+        q, s, _ = ops.quantize_int8(v)
+        t, ts, _ = ops.ternarize(v)
+        for a, b in ((ops.dequantize_int8(q, s, n), ops.dequantize_int8(q, s, n, use_kernel=False)),
+                     (ops.deternarize(t, ts, n), ops.deternarize(t, ts, n, use_kernel=False))):
+            check(a.shape == (n,) and torch.equal(_bits(a), _bits(b)), f"ops decode differs at n={n}")
+    bad = torch.zeros(4 * 256 + 4, dtype=torch.int8, device=DEV)[4:].view(4, 256)
+    try:
+        qz.dequantize_int8_2d(bad, torch.ones(4, 1, device=DEV))
+    except ValueError:
+        pass
+    else:
+        check(False, "dequantize_int8_2d took codes off a 16-byte boundary")
+    x = randn(R_main, 256, seed=4) * 1e-3
+    q, s = qz.quantize_int8_2d(x)
+    t, ts = qz.ternarize_2d(x)
+    del x
+    for label, codes, scales in (("int8", q, s), ("ternary", t, ts)):
+        out, ref = qz.dequantize_int8_2d(codes, scales), qz.dequantize_int8_2d_plain(codes, scales)
+        torch.cuda.synchronize()
+        check(torch.equal(_bits(out), _bits(ref)),
+              f"dequantize_int8_2d differs at the largest bucket ({label} codes)")
+        del out, ref
+    del t, ts
+    ms = time_ms(lambda: qz.dequantize_int8_2d(q, s))
+    plain_ms = time_ms(lambda: qz.dequantize_int8_2d_plain(q, s), reps=3, warmup=1)
+    lib = time_ms(lambda: torch.mul(q, s))                # int8 * f32 promotes to f32: one call
+    nbytes = R_main * (256 + 4 + 256 * 4)                 # codes and scale read, f32 written
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  edge R=64 and R=1 (int8 codes -128..127, scales 0, 1e-30, 1e30, -1.5; ternary codes), "
+          f"ragged n 999 and 529 through ops.dequantize_int8 / deternarize: equal")
+    print(f"  largest stablelm-3b bucket R={R_main}: equal for int8 and ternary codes; kernel {ms:.3f} ms "
+          f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.3f} ms, torch.mul(q, s) {lib:.3f} ms, "
+          f"bound {bound_ms:.3f} ms (bytes)")
+    return {"name": "dequantize_int8_2d", "route": "cuda", "source": CSRC + "quantize.cu",
+            "replaces": "src/repro/kernels/quantize.py:58", "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib}
+
+
+def phase_probe(R_main: int) -> dict:
+    print("[2h] probe_copy_2d vs plain (tolerance: equal bit for bit)")
+    for R in (64, 1):
+        x = randn(R, 256, seed=420 + R)
+        x.view(-1)[1] = float("nan")
+        x.view(-1)[2] = -0.0
+        check(torch.equal(_bits(pb.probe_copy_2d(x)), _bits(pb.probe_copy_2d_plain(x))),
+              f"probe_copy_2d differs at R={R}")
+    bad = torch.zeros(4 * 256 + 1, device=DEV)[1:].view(4, 256)
+    try:
+        pb.probe_copy_2d(bad)
+    except ValueError:
+        pass
+    else:
+        check(False, "probe_copy_2d took rows off a 16-byte boundary")
+    x = randn(R_main, 256, seed=430)
+    out, ref = pb.probe_copy_2d(x), pb.probe_copy_2d_plain(x)
+    torch.cuda.synchronize()
+    check(torch.equal(_bits(out), _bits(ref)), "probe_copy_2d differs at the largest bucket")
+    del out, ref
+    ms = time_ms(lambda: pb.probe_copy_2d(x))
+    plain_ms = time_ms(lambda: pb.probe_copy_2d_plain(x), reps=3, warmup=1)
+    lib = time_ms(lambda: x.clone())
+    nbytes = R_main * 256 * 4 * 2
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  edge R=64 and R=1 (with NaN and -0.0): equal; largest stablelm-3b bucket R={R_main}: equal, "
+          f"kernel {ms:.3f} ms ({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.3f} ms, x.clone() "
+          f"{lib:.3f} ms, bound {bound_ms:.3f} ms (bytes)")
+    return {"name": "probe_copy_2d", "route": "cuda", "source": CSRC + "probe_copy.cu",
+            "replaces": "benchmarks/kernel_bench.py:107", "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib}
+
+
+# ---------------------------------------------------------------------------
+# phases 14-16: the codec calibration and the measurement seams of core/
+# ---------------------------------------------------------------------------
+
+H100_TABLE = REPO / "artifacts" / "bench" / "BENCH_codec_h100.json"
+
+
+def phase_calibration(elements: int) -> dict:
+    """The calibration bench through its entry point, at the bandwidth-bound
+    size against the committed table, then at the reference's 1 MiB."""
+    from benchmarks import torch_kernel_bench as kb
+
+    print(f"[14] codec calibration: benchmarks/torch_kernel_bench.py --calibrate --elements {elements} "
+          f"--check {H100_TABLE.relative_to(REPO)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        build.reset_launch_counts()
+        rc = kb.main(["--calibrate", "--elements", str(elements), "--out", f"{tmp}/big.json",
+                      "--check", str(H100_TABLE)])
+        counts = dict(build.launch_counts)
+        print(f"  launches {counts}")
+        check(rc == 0, f"the calibration at {elements} elements failed its gate (exit {rc})")
+        for name in ("probe_copy_2d", "dequantize_int8_2d", "quantize_int8_2d", "ternarize_2d",
+                     "topk_mask_2d"):
+            check(counts[name] > 0, f"the calibration did not launch {name}")
+        big = json.loads(Path(f"{tmp}/big.json").read_text())
+        check(not big["interpret"] and big["n_bytes"] == elements * 4, "calibration table header")
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("  the same at the reference's 1 << 18 elements (1 MiB, L2-resident)")
+        check(kb.main(["--calibrate", "--out", f"{tmp}/small.json"]) == 0, "calibration at 1 MiB")
+    print(f"  copy probe at {kb.LAUNCH_PROBE_ROWS} rows {big['launch_probe_us']:.3f} us against "
+          f"H100_LAUNCH_OVERHEAD {H100_LAUNCH_OVERHEAD * 1e6:.3f} us")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_addest() -> None:
+    print("[15] AddEst.measure on the card (CUDA events, L2 flushed before each add), against "
+          "AddEst.h100()")
+    est, model = AddEst.measure(device="cuda"), AddEst.h100()
+    for x, t in zip(est.sizes, est.times):
+        rate = 3 * x / t
+        print(f"  {int(x):>10d} B: {t * 1e6:9.3f} us ({rate / 1e9:7.1f} GB/s); model {model(x) * 1e6:9.3f} us")
+        check(0 < rate <= HBM_BYTES_PER_S * 1.05,
+              f"AddEst.measure read {rate / 1e9:.0f} GB/s at {int(x)} B: above the card's peak")
+
+
+def phase_timeline(trained: dict) -> None:
+    cfg = get_config("stablelm-3b")
+    print(f"[16] timeline.measure: stablelm-3b full width and depth ({cfg.num_layers} layers), S = 4096, "
+          f"batch 1, repeats 2")
+    gc.collect()
+    torch.cuda.empty_cache()
+    api = get_model(cfg)
+    shape = InputShape("train_4k", INPUT_SHAPES["train_4k"].seq_len, 1, "train")
+    batch = device_put_batch(SyntheticLM(cfg, shape, seed=0).batch(0), DEV)
+    build.reset_launch_counts()
+    tl = timeline.measure(api, cfg, batch, repeats=2)
+    counts = dict(build.launch_counts)
+    ready = tl.ready_times
+    print(f"  t_batch {tl.t_batch:.3f} s (the int8 trainer's median step, fwd+bwd+sync+AdamW: "
+          f"{trained['result']['median_step_s']:.3f} s); t_back {tl.t_back:.3f} s; {len(ready)} "
+          f"groups, {tl.total_bytes / 2 ** 30:.2f} GiB of f32 gradients; ready at "
+          f"{', '.join(f'{r:.4f}' for r in ready)} s; launches {counts}")
+    check(math.isfinite(tl.t_batch) and tl.t_batch > 0, "t_batch not a positive time")
+    check(all(a < b for a, b in zip(ready, ready[1:])), "ready times do not ascend")
+    check(counts["flash_attention"] > 0, "timeline.measure did not run the flash kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: K = 4 gradient sync
 # ---------------------------------------------------------------------------
@@ -595,6 +768,8 @@ def phase_trainer(layers: int) -> dict:
     plan, _ = make_plan(get_model(cfg_run).init(None, device="meta"), 64.0)
     check(counts["quantize_int8_2d"] == plan.n_buckets * steps,
           f"expected one encode per bucket and step ({plan.n_buckets} x {steps})")
+    check(counts["dequantize_int8_2d"] == counts["quantize_int8_2d"],
+          "expected one decode per encode (the grad sync's dequantize kernel)")
 
     print("  the same seed on the plain versions (use_pallas=never: plain attention, plain codec), 2 steps")
     ref, ref_counts = run_trainer(trainer_args("int8", 2, layers, ["--use-pallas", "never"]))
@@ -615,6 +790,8 @@ def phase_ternary(layers: int) -> dict:
     check(all(math.isfinite(x) for x in result["losses"]), "a loss is not finite")
     check(counts["ternarize_2d"] > 0 and counts["fused_add_2d"] > 0
           and counts["flash_attention"] >= layers * 2, "ternary path missed a kernel")
+    check(counts["dequantize_int8_2d"] == counts["ternarize_2d"],
+          "expected one decode (the dequantize kernel) per ternary encode")
     return counts
 
 
@@ -790,8 +967,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     rows.append(phase_ssm_scan())
     torch.cuda.empty_cache()
+    rows.append(phase_dequantize(R_main))
+    torch.cuda.empty_cache()
+    rows.append(phase_probe(R_main))
+    calib_counts = phase_calibration(R_main * 256)
+    phase_addest()
     phase_grad_sync()
     trained = phase_trainer(args.layers)
+    phase_timeline(trained)
     ternary_counts = phase_ternary(args.ternary_layers)
     phase_serve("7", "stablelm-3b", {"flash_attention": get_config("stablelm-3b").num_layers},
                 [{"attn_chunk": 512}])
@@ -819,13 +1002,15 @@ def main() -> None:
 
     # each kernel's launches on the path that runs it: ternarize on the
     # ternary trainer run, topk_mask on the topk run, wkv on rwkv6 serving,
-    # ssm_scan on jamba serving, the others on the int8 trainer run
+    # ssm_scan on jamba serving, the copy probe on the calibration, the
+    # others (dequantize among them) on the int8 trainer run
     paths = {"ternarize_2d": ternary_counts, "topk_mask_2d": topk_counts,
-             "wkv": rwkv_counts, "ssm_scan": jamba_counts}
+             "wkv": rwkv_counts, "ssm_scan": jamba_counts, "probe_copy_2d": calib_counts}
     for row in rows:
         row["launches"] = paths.get(row["name"], trained["counts"])[row["name"]]
         check(row["launches"] > 0, f"{row['name']} was never launched on its path")
-    print(f"[13] total {time.time() - t_start:.0f} s")
+    check(len(rows) == 9, f"expected a row for each of the nine TPU kernels, got {len(rows)}")
+    print(f"[17] total {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

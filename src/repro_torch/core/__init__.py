@@ -1,2 +1,4 @@
-"""The comm-schedule IR shared by the runtime (the numpy simulator and the
-experiment engine are not ported yet)."""
+"""The port's share of ``repro.core``: the comm-schedule IR of the runtime
+(``schedule``) and the measurement seams (``addest``, ``codec``,
+``timeline``, and of ``flops`` the part that ``timeline.measure`` needs).
+The numpy simulator and the experiment engine are not ported yet."""

@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("quantize.cu", "fused_add.cu", "flash_attn.cu", "topk_mask.cu", "wkv.cu",
-           "ssm_scan.cu")
+           "ssm_scan.cu", "probe_copy.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -32,6 +32,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "repro_quantize_int8": [_P, _P, _P, _L, _P],
     "repro_ternarize": [_P, _P, _P, _L, _P],
+    "repro_dequantize_int8": [_P, _P, _P, _L, _P],
+    "repro_probe_copy": [_P, _P, _L, _P],
     "repro_fused_add_f32": [_P, _P, _I, _L, _P],
     "repro_fused_add_bf16": [_P, _P, _I, _L, _P],
     "repro_flash_attn_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -49,7 +51,8 @@ _lib: Optional[ctypes.CDLL] = None
 # it launches its kernel
 launch_counts: Dict[str, int] = {"quantize_int8_2d": 0, "ternarize_2d": 0,
                                  "fused_add_2d": 0, "flash_attention": 0,
-                                 "topk_mask_2d": 0, "wkv": 0, "ssm_scan": 0}
+                                 "topk_mask_2d": 0, "wkv": 0, "ssm_scan": 0,
+                                 "dequantize_int8_2d": 0, "probe_copy_2d": 0}
 
 
 def reset_launch_counts() -> None:

@@ -1,13 +1,14 @@
-// Row-wise gradient quantizers for Hopper (sm_90a): int8 block quantization
-// and deterministic TernGrad ternarization.
+// Row-wise gradient quantizers for Hopper (sm_90a): int8 block quantization,
+// deterministic TernGrad ternarization, and the decode of both.
 //
-// Replaces the TPU kernels `quantize_int8_2d` (`_quant_int8_kernel`) and
-// `ternarize_2d` (`_ternary_kernel`) of src/repro/kernels/quantize.py.
+// Replaces the TPU kernels `quantize_int8_2d` (`_quant_int8_kernel`),
+// `dequantize_int8_2d` (`_dequant_int8_kernel`) and `ternarize_2d`
+// (`_ternary_kernel`) of src/repro/kernels/quantize.py.
 //
-// Bound: device memory.  Each element is read once as 4 bytes and written
-// once as 1 byte (plus 4 bytes of scale per 256-element row), and the
-// arithmetic per element is a handful of instructions, so the least time
-// is bytes / memory rate.
+// Bound: device memory.  An encode reads each element once as 4 bytes and
+// writes it once as 1 byte (plus 4 bytes of scale per 256-element row); the
+// decode reads 1 byte and writes 4.  The arithmetic per element is a
+// handful of instructions, so the least time is bytes / memory rate.
 //
 // Design: one warp owns one 256-element row (one quantization block).  A
 // lane holds 8 neighbouring floats (two 16-byte loads), the row statistic
@@ -15,7 +16,16 @@
 // shared memory and no block-level barrier is needed, and the lane's 8
 // int8 results leave as one 8-byte store.  Division is IEEE (no fast
 // math) and rounding is rintf (round half to even), so the int8 codes
-// equal the plain PyTorch version's bit for bit.
+// equal the plain PyTorch version's bit for bit.  The decode has the same
+// launch shape (one warp a row); a lane reads the row's scale once and two
+// 4-byte words of codes, 4 at lane*4 and 4 at 128 + lane*4, and writes its
+// 8 floats as two 16-byte stores, so each warp-wide store is 512
+// contiguous bytes (one 8-byte load and two stores at lane*32 bytes, each
+// store touching half of every sector, read 1.18 ms against 1.02 ms at the
+// largest bucket on an H100, chip_smoke.py).  The product is one rounded
+// multiply (__fmul_rn, never contracted), the plain version's
+// float32(q) * s bit for bit.  It takes any int8 codes, so the ternary
+// codes {-1, 0, 1} decode through it unchanged.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -103,6 +113,29 @@ ternarize_kernel(const float* __restrict__ x, int8_t* __restrict__ t,
   if (lane == 0) s[row] = scale;
 }
 
+__global__ void __launch_bounds__(THREADS)
+dequantize_int8_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
+                       float* __restrict__ out, long long rows) {
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * WARPS_PER_CTA + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  // codes 4*lane..4*lane+3 and 128+4*lane..: each warp-wide access, the
+  // two loads and the two stores, is one contiguous span
+  const uint32_t* qr = reinterpret_cast<const uint32_t*>(q + row * BLOCK);
+  const uint32_t c0 = qr[lane], c1 = qr[32 + lane];
+  const float scale = __ldg(s + row);
+  float v[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // sign-extend byte i of each word
+    v[i] = __fmul_rn(static_cast<float>(static_cast<int8_t>(c0 >> (8 * i))), scale);
+    v[i + 4] = __fmul_rn(static_cast<float>(static_cast<int8_t>(c1 >> (8 * i))), scale);
+  }
+  float4* o = reinterpret_cast<float4*>(out + row * BLOCK);
+  o[lane] = make_float4(v[0], v[1], v[2], v[3]);
+  o[32 + lane] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 inline unsigned int grid_for(long long rows) {
   return static_cast<unsigned int>((rows + WARPS_PER_CTA - 1) / WARPS_PER_CTA);
 }
@@ -122,5 +155,13 @@ extern "C" int repro_ternarize(const void* x, void* t, void* s, long long rows,
   if (rows <= 0) return 0;
   ternarize_kernel<<<grid_for(rows), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<int8_t*>(t), static_cast<float*>(s), rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_dequantize_int8(const void* q, const void* s, void* out, long long rows,
+                                     void* stream) {
+  if (rows <= 0) return 0;
+  dequantize_int8_kernel<<<grid_for(rows), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(s), static_cast<float*>(out), rows);
   return static_cast<int>(cudaGetLastError());
 }

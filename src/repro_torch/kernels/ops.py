@@ -3,8 +3,8 @@
 Handle the 1-D <-> (rows, 256) layout and the zero padding; the 2-D
 functions below them choose between the CUDA kernel (CUDA tensor) and the
 plain version (CPU tensor).  ``use_kernel=False`` asks for the plain version
-outright: the reference path of a comparison run.  Counterpart of ``repro/kernels/ops.py``;
-``dequantize_int8`` and ``deternarize`` are not ported yet.
+outright: the reference path of a comparison run.  Counterpart of
+``repro/kernels/ops.py``, every function of it.
 """
 from __future__ import annotations
 
@@ -38,12 +38,26 @@ def quantize_int8(x: torch.Tensor, use_kernel: bool = True):
     return q, s, n
 
 
+def dequantize_int8(q: torch.Tensor, s: torch.Tensor, n: int,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """(q int8 (R, BLOCK), scales (R, 1), n) -> the first n decoded values, 1-D f32."""
+    fn = _q.dequantize_int8_2d if use_kernel else _q.dequantize_int8_2d_plain
+    return fn(q, s).reshape(-1)[:n]
+
+
 def ternarize(x: torch.Tensor, use_kernel: bool = True):
     """x: any shape float -> (t int8 in {-1,0,1} (R, BLOCK), scales (R, 1), n)."""
     rows, n = _to_rows(x.float())
     fn = _q.ternarize_2d if use_kernel else _q.ternarize_2d_plain
     t, s = fn(rows.contiguous())
     return t, s, n
+
+
+def deternarize(t: torch.Tensor, s: torch.Tensor, n: int,
+                use_kernel: bool = True) -> torch.Tensor:
+    """The ternary decode: ``t * scale`` is the int8 decode of the codes
+    {-1, 0, 1}, so it reuses that kernel, as the reference does."""
+    return dequantize_int8(t, s, n, use_kernel)
 
 
 def topk_threshold(x: torch.Tensor, ratio: float) -> torch.Tensor:

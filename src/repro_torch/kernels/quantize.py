@@ -1,11 +1,12 @@
-"""Row-wise gradient quantizers: int8 block quantization and deterministic
-TernGrad ternarization, one 256-element quantization block per row.
+"""Row-wise gradient quantizers: int8 block quantization, deterministic
+TernGrad ternarization and their decode, one 256-element quantization block
+per row.
 
 Counterpart of ``repro/kernels/quantize.py``.  The CUDA kernels are in
-``csrc/quantize.cu`` (one warp per row; memory-bound: 4 bytes read and 1
-byte written per element).  ``*_plain`` are the plain PyTorch versions: the
-wrappers use them for CPU tensors, and the kernels are held against them
-on the card.
+``csrc/quantize.cu`` (one warp per row; memory-bound: an encode reads 4
+bytes and writes 1 per element, the decode reads 1 and writes 4).
+``*_plain`` are the plain PyTorch versions: the wrappers use them for CPU
+tensors, and the kernels are held against them on the card.
 """
 from __future__ import annotations
 
@@ -35,6 +36,10 @@ def ternarize_2d_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return t, scale
 
 
+def dequantize_int8_2d_plain(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * s
+
+
 def _check_rows(x: torch.Tensor) -> None:
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != BLOCK:
         raise ValueError(f"expected a float32 (R, {BLOCK}) tensor, got "
@@ -43,7 +48,15 @@ def _check_rows(x: torch.Tensor) -> None:
         raise ValueError("expected a contiguous tensor")
 
 
+def _check_aligned(t: torch.Tensor) -> None:
+    """The kernels move 16 bytes a lane (codes: 4-byte words of 16-byte
+    aligned rows); every row of an allocation starts on such a boundary."""
+    if t.data_ptr() % 16:
+        raise ValueError("the rows must start on a 16-byte boundary")
+
+
 def _launch_rows(entry: str, counter: str, x: torch.Tensor):
+    _check_aligned(x)
     lib = build.library()
     rows = x.shape[0]
     q = torch.empty((rows, BLOCK), dtype=torch.int8, device=x.device)
@@ -75,3 +88,33 @@ def ternarize_2d(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if not x.is_cuda:
         return ternarize_2d_plain(x)
     return _launch_rows("repro_ternarize", "ternarize_2d", x)
+
+
+def _check_codes(q: torch.Tensor, s: torch.Tensor) -> None:
+    if q.dtype != torch.int8 or q.dim() != 2 or q.shape[1] != BLOCK:
+        raise ValueError(f"expected int8 (R, {BLOCK}) codes, got {q.dtype} {tuple(q.shape)}")
+    if s.dtype != torch.float32 or tuple(s.shape) != (q.shape[0], 1):
+        raise ValueError(f"expected float32 ({q.shape[0]}, 1) scales, got "
+                         f"{s.dtype} {tuple(s.shape)}")
+    if not (q.is_contiguous() and s.is_contiguous()):
+        raise ValueError("expected contiguous codes and scales")
+    if q.device != s.device:
+        raise ValueError(f"codes on {q.device}, scales on {s.device}")
+
+
+def dequantize_int8_2d(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """q: (R, 256) int8, s: (R, 1) float32 -> ``float32(q) * s``, (R, 256) f32.
+
+    Any int8 codes: the ternary codes {-1, 0, 1} decode through it too."""
+    _check_codes(q, s)
+    if not q.is_cuda:
+        return dequantize_int8_2d_plain(q, s)
+    _check_aligned(q)
+    lib = build.library()
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        code = lib.repro_dequantize_int8(q.data_ptr(), s.data_ptr(), out.data_ptr(), q.shape[0],
+                                         build.current_stream(q.device))
+    build.check(code, "repro_dequantize_int8")
+    build.launch_counts["dequantize_int8_2d"] += 1
+    return out

@@ -167,14 +167,18 @@ def _compressed_mean(xs: PerRank, comm: CommConfig, world: InProcessWorld,
         return [kops.fused_add(g.reshape(n_total, -1), use_kernel=use_kernels) / n_total
                 for g in gathered]
     if comm.compression in ("int8", "ternary"):
-        enc = kops.quantize_int8 if comm.compression == "int8" else kops.ternarize
+        enc, dec = ((kops.quantize_int8, kops.dequantize_int8) if comm.compression == "int8"
+                    else (kops.ternarize, kops.deternarize))
         encoded = [enc(x, use_kernel=use_kernels) for x in xs]
         n = encoded[0][2]
         qg = world.all_gather([e[0] for e in encoded])
         sg = world.all_gather([e[1] for e in encoded])
         out = []
         for q_all, s_all in zip(qg, sg):
-            deq = q_all.float() * s_all                   # inline, as the reference does
+            # the reference multiplies inline and XLA fuses it into one pass;
+            # the decode kernel is that pass, with the same values bit for bit
+            deq = dec(q_all.reshape(-1, kops.BLOCK), s_all.reshape(-1, 1), q_all.numel(),
+                      use_kernel=use_kernels)
             total = kops.fused_add(deq.reshape(n_total, -1), use_kernel=use_kernels)
             out.append(total[:n] / n_total)
         return out

@@ -177,7 +177,7 @@ def test_buckets_are_issued_in_plan_order(monkeypatch):
     assert tuple(seen) == plan.comm_plan(comm).bucket_order() == (3, 2, 1, 0)
 
 
-def test_topk_waits_for_a_later_slice():
+def test_topk_sync_matches_the_masked_float64_mean():
     """topk runs the reference's branch: each rank masks its bucket to the
     ~1 % largest |x| (threshold from a strided sample of 1 << 14), the dense
     masked buckets are gathered and summed.

@@ -53,6 +53,10 @@ from repro_torch.models.registry import get_model
 api = get_model(get_config("jamba-v0.1-52b").smoke())
 logits, cache = api.prefill(api.init(torch.Generator().manual_seed(0)), {"tokens": torch.zeros(1, 4, dtype=torch.long)})
 assert logits.shape == (1, 1, 512) and set(cache["l0"]) == {"conv", "ssm"}
+q, s, n = ops.quantize_int8(x)
+assert torch.equal(ops.dequantize_int8(q, s, n), ops.dequantize_int8(q, s, n, use_kernel=False))
+from repro_torch.kernels import probe
+assert torch.equal(probe.probe_copy_2d(q.float()), q.float())
 assert build._lib is None, "the library must not be built for CPU tensors"
 assert "triton" not in sys.modules
 print("NVCC", shutil.which("nvcc"))
@@ -84,7 +88,8 @@ def test_kernels_import_and_plain_versions_run_without_nvcc_or_triton(tmp_path):
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + [REPO / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "benchmarks").glob("torch_*.py")))
 
 
 _FORBIDDEN = [re.compile(r"^\s*import\s+jax\b"), re.compile(r"^\s*from\s+jax\b"),
@@ -114,7 +119,8 @@ def test_every_subpackage_is_a_package_and_sources_ship():
     names = {m.name for m in pkgutil.iter_modules([str(PKG)])}
     assert {"configs", "kernels", "models", "optim", "data", "parallel", "core", "launch"} <= names
     assert {p.name for p in (PKG / "kernels" / "csrc").glob("*.cu")} == {
-        "quantize.cu", "fused_add.cu", "flash_attn.cu", "topk_mask.cu", "wkv.cu", "ssm_scan.cu"}
+        "quantize.cu", "fused_add.cu", "flash_attn.cu", "topk_mask.cu", "wkv.cu", "ssm_scan.cu",
+        "probe_copy.cu"}
     from repro_torch.kernels import build
     assert set(build.SOURCES) == {p.name for p in (PKG / "kernels" / "csrc").glob("*.cu")}
     assert (PKG / "launch" / "serve.py").exists() and (PKG / "models" / "rwkv.py").exists()

@@ -4,6 +4,8 @@ against the JAX package: the same numpy inputs go through
 ``repro_torch.kernels``.  The CUDA kernels themselves are held against these
 plain versions on the card by ``chip_smoke.py``."""
 import math
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +20,11 @@ from repro.kernels.topk_mask import topk_mask_2d as jtopk_mask_2d
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.flash_attn import flash_attention_cuda, flash_attention_plain
-from repro_torch.kernels.quantize import BLOCK
+from repro_torch.kernels.probe import probe_copy_2d, probe_copy_2d_plain
+from repro_torch.kernels.quantize import BLOCK, dequantize_int8_2d, dequantize_int8_2d_plain
 from repro_torch.kernels.topk_mask import topk_mask_2d, topk_mask_2d_plain
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))    # benchmarks/
 
 PAD = BLOCK * 64
 SHAPES = [(PAD,), (PAD * 3,), (999,), (1, 1), (123, 45), (BLOCK,), (2 * BLOCK + 17,)]
@@ -71,6 +76,67 @@ def test_ternarize_matches_jax(shape):
     np.testing.assert_array_equal(np32(t_t), np.asarray(t_j))
     np.testing.assert_allclose(np32(s_t), np.asarray(s_j), rtol=1e-6)
     assert set(np.unique(np32(t_t))) <= {-1, 0, 1}
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("codec", ["int8", "ternary"])
+def test_decode_matches_jax_bit_for_bit(shape, codec):
+    """The same codes and scales (the JAX encoder's) through both decoders:
+    ``float32(q) * scale`` is one rounded product, so the bits agree."""
+    x = _rand(shape, 7)
+    enc, dec = ((jops.quantize_int8, jops.dequantize_int8) if codec == "int8"
+                else (jops.ternarize, jops.deternarize))
+    q_j, s_j, n = enc(to_jax(x))
+    out_j = np.asarray(dec(q_j, s_j, n))
+    tdec = tops.dequantize_int8 if codec == "int8" else tops.deternarize
+    out_t = tdec(to_torch(np.asarray(q_j)), to_torch(np.asarray(s_j)), n)
+    assert out_t.dtype == torch.float32 and tuple(out_t.shape) == out_j.shape == (x.size,)
+    np.testing.assert_array_equal(np32(out_t).view(np.int32), out_j.view(np.int32))
+    plain = tdec(to_torch(np.asarray(q_j)), to_torch(np.asarray(s_j)), n, use_kernel=False)
+    assert torch.equal(plain, out_t)
+
+
+def test_dequantize_takes_any_int8_code():
+    rng = np.random.default_rng(8)
+    q = rng.integers(-128, 128, (64, BLOCK)).astype(np.int8)
+    s = rng.standard_normal((64, 1)).astype(np.float32)
+    s[:4, 0] = [0.0, 1e-30, 1e30, -2.5]
+    from repro.kernels.quantize import dequantize_int8_2d as jdeq
+    out_j = np.asarray(jdeq(to_jax(q), to_jax(s), interpret=True))
+    out_t = dequantize_int8_2d(to_torch(q), to_torch(s))
+    np.testing.assert_array_equal(np32(out_t).view(np.int32), out_j.view(np.int32))
+    assert torch.equal(out_t, dequantize_int8_2d_plain(to_torch(q), to_torch(s)))
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+def test_probe_copy_plain_matches_the_pallas_probe(rows):
+    from benchmarks.kernel_bench import probe_copy_2d as jprobe
+    x = _rand((rows, BLOCK), rows)
+    x[0, :3] = [np.nan, -0.0, np.inf]
+    out_j = np.asarray(jprobe(to_jax(x), interpret=True))
+    out_t = probe_copy_2d(to_torch(x))
+    np.testing.assert_array_equal(np32(out_t).view(np.int32), out_j.view(np.int32))
+    assert torch.equal(probe_copy_2d_plain(to_torch(x)).view(torch.int32), out_t.view(torch.int32))
+
+
+def test_decode_and_probe_validate_inputs():
+    q, s = torch.zeros(4, BLOCK, dtype=torch.int8), torch.ones(4, 1)
+    with pytest.raises(ValueError):
+        dequantize_int8_2d(q.float(), s)                  # codes must be int8
+    with pytest.raises(ValueError):
+        dequantize_int8_2d(q[:, :128], s)                 # rows of 256
+    with pytest.raises(ValueError):
+        dequantize_int8_2d(q, torch.ones(3, 1))           # one scale per row
+    with pytest.raises(ValueError):
+        dequantize_int8_2d(q, s.double())
+    with pytest.raises(ValueError):
+        dequantize_int8_2d(torch.zeros(BLOCK, 4, dtype=torch.int8).t(), s)   # not contiguous
+    with pytest.raises(ValueError):
+        probe_copy_2d(torch.zeros(4, 128))
+    with pytest.raises(ValueError):
+        probe_copy_2d(torch.zeros(4, BLOCK, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        probe_copy_2d(torch.zeros(BLOCK, 4).t())
 
 
 @pytest.mark.parametrize("k", [1, 2, 8, 16])
@@ -214,6 +280,11 @@ def test_cpu_path_launches_no_kernel():
     wkv(*(torch.zeros(1, 2, 3, 8) for _ in range(4)), torch.zeros(2, 8), torch.zeros(1, 2, 8, 8))
     from repro_torch.kernels.ssm_scan import ssm_scan
     ssm_scan(torch.ones(1, 3, 4, 8), torch.ones(1, 3, 4, 8), torch.ones(1, 3, 4), torch.zeros(1, 4, 8))
+    q, s, n = tops.quantize_int8(torch.ones(10))
+    tops.dequantize_int8(q, s, n)
+    tops.deternarize(q, s, n)
+    probe_copy_2d(torch.ones(64, BLOCK))
     assert set(build.launch_counts) == {"quantize_int8_2d", "ternarize_2d", "fused_add_2d",
-                                        "flash_attention", "topk_mask_2d", "wkv", "ssm_scan"}
+                                        "flash_attention", "topk_mask_2d", "wkv", "ssm_scan",
+                                        "dequantize_int8_2d", "probe_copy_2d"}
     assert all(v == 0 for v in build.launch_counts.values())

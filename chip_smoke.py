@@ -235,82 +235,130 @@ def phase_fused_add(n_main: int) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib}
 
 
-def flash_case(BH, S, hd, dtype, causal, H, KV, seed):
-    q = randn(BH, S, hd, seed=seed, dtype=dtype)
-    k = randn(BH // H * KV, S, hd, seed=seed + 1, dtype=dtype)
-    v = randn(BH // H * KV, S, hd, seed=seed + 2, dtype=dtype)
-    return q, k, v
+def flash_case(BH, S, hd, dtype, causal, H, KV, seed, Skv=None, q_scale=1.0):
+    q = randn(BH, S, hd, seed=seed) * q_scale
+    k = randn(BH // H * KV, Skv or S, hd, seed=seed + 1, dtype=dtype)
+    v = randn(BH // H * KV, Skv or S, hd, seed=seed + 2, dtype=dtype)
+    return q.to(dtype), k, v
 
 
-def phase_flash() -> dict:
-    print("[2c] flash attention vs plain (tolerance: f32 rtol = atol = 2e-3; bf16 rtol = atol "
-          "= 1e-2, one bf16 rounding of the output)")
-    cases = [(4, 256, 64, torch.float32, True, 1, 1), (2, 128, 64, torch.float32, False, 1, 1),
-             (1, 512, 32, torch.float32, True, 1, 1), (3, 128, 128, torch.float32, True, 1, 1),
-             (8, 256, 80, torch.float32, True, 4, 2), (8, 256, 64, torch.bfloat16, True, 4, 2),
-             (4, 1024, 128, torch.bfloat16, True, 2, 2), (4, 512, 80, torch.bfloat16, False, 4, 1),
-             (2, 192, 72, torch.float32, True, 2, 1), (8, 4096, 80, torch.float32, True, 8, 8)]
-    for i, (BH, S, hd, dtype, causal, H, KV) in enumerate(cases):
-        q, k, v = flash_case(BH, S, hd, dtype, causal, H, KV, seed=10 * i)
-        out = fl.flash_attention_cuda(q, k, v, causal=causal, n_heads=H, n_kv_heads=KV)
+def time_device_ms(fn, reps: int = 10) -> float:
+    """Median device time of one call, by CUDA events, each sample queued
+    behind a stream spin of about 1 ms so that the events do not time the
+    host's launch (10-20 us, 5 % of a 0.3 ms kernel)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        e0.record()
+        fn()
+        e1.record()
         torch.cuda.synchronize()
-        ref = fl.flash_attention_plain(q, k, v, causal=causal, n_heads=H, n_kv_heads=KV)
-        tol = 2e-3 if dtype == torch.float32 else 1e-2
-        err = float((out.float() - ref.float()).abs().max())
-        print(f"  (BH,S,hd)=({BH},{S},{hd}) {str(dtype).split('.')[-1]} causal={causal} "
-              f"Hq={H} Hkv={KV}: max abs err {err:.3e}")
-        check(bool(torch.isfinite(out).all()), "flash output not finite")
-        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
-    BH, S, hd, H = 32, 4096, 80, 32                       # stablelm-3b, batch 1, train_4k
-    q, k, v = flash_case(BH, S, hd, torch.bfloat16, True, H, H, seed=999)
-    out = fl.flash_attention_cuda(q, k, v, causal=True, n_heads=H, n_kv_heads=H)
-    ref = fl.flash_attention_plain(q, k, v, causal=True, n_heads=H, n_kv_heads=H)
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def flash_padded(q, k, v, H, KV) -> torch.Tensor:
+    """The bf16 kernel with its second product at N = 128 on the zero-padded
+    rows (``repro_flash_attn_bf16_nv``), for comparing hd 80's tile choices."""
+    out = torch.empty_like(q)
+    BH, Sq, hd = q.shape
+    lib = build.library()
+    build.check(lib.repro_flash_attn_bf16_nv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], hd, H, KV,
+        1, 1.0 / math.sqrt(hd), 128, build.current_stream(q.device)), "repro_flash_attn_bf16_nv")
+    return out
+
+
+def flash_shape(label: str, B: int, H: int, KV: int, S: int, hd: int, seed: int) -> dict:
+    """The bf16 kernel at a main path's causal shape: held against the plain
+    version, timed beside it, beside scaled_dot_product_attention and
+    beside its bound."""
+    q, k, v = flash_case(B * H, S, hd, torch.bfloat16, True, H, KV, seed=seed)
+    out = fl.flash_attention_cuda(q, k, v, causal=True, n_heads=H, n_kv_heads=KV)
+    ref = fl.flash_attention_plain(q, k, v, causal=True, n_heads=H, n_kv_heads=KV)
+    check(bool(torch.isfinite(out).all()), f"flash output not finite at {label}")
     torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
     err = float((out.float() - ref.float()).abs().max())
     del out, ref
-    ms = time_ms(lambda: fl.flash_attention_cuda(q, k, v, causal=True, n_heads=H, n_kv_heads=H))
-    plain_ms = time_ms(lambda: fl.flash_attention_plain(q, k, v, causal=True, n_heads=H, n_kv_heads=H),
+    torch.cuda.empty_cache()
+    ms = time_device_ms(lambda: fl.flash_attention_cuda(q, k, v, causal=True, n_heads=H, n_kv_heads=KV))
+    plain_ms = time_ms(lambda: fl.flash_attention_plain(q, k, v, causal=True, n_heads=H, n_kv_heads=KV),
                        reps=3, warmup=1)
-    q4, k4, v4 = (t.reshape(1, H, S, hd) for t in (q, k, v))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
-    flops = 4.0 * hd * BH * (S * (S + 1) / 2)             # two products over the causal triangle
-    nbytes = 4 * BH * S * hd * 2                          # q, k, v read and o written, bf16
+    q4, k4, v4 = q.reshape(B, H, S, hd), k.reshape(B, KV, S, hd), v.reshape(B, KV, S, hd)
+    lib = time_device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                                enable_gqa=KV != H))
+    flops = 4.0 * hd * B * H * (S * (S + 1) / 2)          # two products over the causal triangle
+    nbytes = 2 * S * hd * (2 * B * H + 2 * B * KV)        # q and o; k and v, bf16
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"  (32,4096,80) bf16 causal (trainer): err {err:.3e}, kernel {ms:.3f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-          f"scaled_dot_product_attention {lib:.3f} ms, bound {max(t_ops, t_bytes):.4f} ms")
-    del q, k, v, q4, k4, v4
-    flash_jamba()
-    return {"name": "flash_attention", "route": "cuda", "source": CSRC + "flash_attn.cu",
+    print(f"  ({B * H},{S},{hd}) bf16 causal Hq={H} Hkv={KV} ({label}): err {err:.3e}, kernel "
+          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention {lib:.4f} ms ({ms / lib:.2f}x), bound "
+          f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})")
+    if hd == 80:
+        torch.testing.assert_close(flash_padded(q, k, v, H, KV).float(),
+                                   fl.flash_attention_cuda(q, k, v, causal=True, n_heads=H,
+                                                           n_kv_heads=KV).float(), rtol=1e-2, atol=1e-2)
+        padded = time_device_ms(lambda: flash_padded(q, k, v, H, KV))
+        print(f"    the same with the second product at N = 128 on zero-padded rows: {padded:.4f} ms "
+              f"({padded / ms:.2f}x the kernel)")
+    return {"name": "flash_attention", "route": "cuda", "source": CSRC + "flash_attn_sm90.cu",
             "replaces": "src/repro/kernels/flash_attn.py:84", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib}
 
 
-def flash_jamba() -> None:
-    """jamba-v0.1-52b's attention layer at serving: batch 4, prompt 4096,
-    Hq 32 / Hkv 8, hd 128, bf16, causal."""
-    B, H, KV, S, hd = 4, 32, 8, 4096, 128
-    q, k, v = flash_case(B * H, S, hd, torch.bfloat16, True, H, KV, seed=1234)
-    out = fl.flash_attention_cuda(q, k, v, causal=True, n_heads=H, n_kv_heads=KV)
-    ref = fl.flash_attention_plain(q, k, v, causal=True, n_heads=H, n_kv_heads=KV)
-    check(bool(torch.isfinite(out).all()), "flash output not finite at Jamba's shape")
-    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
-    err = float((out.float() - ref.float()).abs().max())
-    del out, ref
-    torch.cuda.empty_cache()
-    ms = time_ms(lambda: fl.flash_attention_cuda(q, k, v, causal=True, n_heads=H, n_kv_heads=KV))
-    plain_ms = time_ms(lambda: fl.flash_attention_plain(q, k, v, causal=True, n_heads=H, n_kv_heads=KV),
-                       reps=3, warmup=1)
-    q4, k4, v4 = q.reshape(B, H, S, hd), k.reshape(B, KV, S, hd), v.reshape(B, KV, S, hd)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True))
-    flops = 4.0 * hd * B * H * (S * (S + 1) / 2)
-    nbytes = 2 * S * hd * (2 * B * H + 2 * B * KV)          # q and o; k and v, bf16
-    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"  (128,4096,128) bf16 causal Hq=32 Hkv=8 (jamba-v0.1-52b serving): err {err:.3e}, "
-          f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-          f"scaled_dot_product_attention {lib:.3f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-          f"({'operations' if t_ops >= t_bytes else 'bytes'})")
+def phase_flash() -> dict:
+    print("[2c] flash attention vs plain (tolerance: f32 rtol = atol = 2e-3; bf16 rtol = atol "
+          "= 1e-2, one bf16 rounding of P and of the output); bf16 runs on the tensor cores "
+          "(flash_attn_sm90.cu), f32 on the CUDA cores (flash_attn.cu)")
+    bf16 = torch.bfloat16
+    cases = [  # BH, Sq, hd, dtype, causal, Hq, Hkv[, Skv, q scale]
+        (4, 256, 64, torch.float32, True, 1, 1), (2, 128, 64, torch.float32, False, 1, 1),
+        (1, 512, 32, torch.float32, True, 1, 1), (3, 128, 128, torch.float32, True, 1, 1),
+        (8, 256, 80, torch.float32, True, 4, 2), (8, 256, 64, bf16, True, 4, 2),
+        (4, 1024, 128, bf16, True, 2, 2), (4, 512, 80, bf16, False, 4, 1),
+        (2, 192, 72, torch.float32, True, 2, 1), (8, 4096, 80, torch.float32, True, 8, 8),
+        # the tensor-core kernel's edges: hd 72/80/96/128 (and 32, padded to 64),
+        # S not a multiple of its 128-row tiles, Sq != Skv, GQA groups 1/2/4,
+        # q x 8 for scores of a large range (the running max)
+        (4, 192, 72, bf16, True, 4, 4), (4, 64, 80, bf16, True, 2, 1),
+        (4, 192, 96, bf16, True, 4, 1), (2, 256, 128, bf16, True, 2, 2),
+        (2, 256, 32, bf16, True, 1, 1), (4, 128, 80, bf16, False, 2, 1, 320),
+        (4, 192, 128, bf16, False, 4, 1, 64), (8, 512, 80, bf16, True, 8, 2, None, 8.0),
+        (8, 256, 64, bf16, False, 4, 2, None, 8.0), (4, 192, 128, bf16, True, 4, 1, None, 8.0),
+    ]
+    for i, (BH, S, hd, dtype, causal, H, KV, *rest) in enumerate(cases):
+        Skv = rest[0] if rest else None
+        q_scale = rest[1] if len(rest) > 1 else 1.0
+        q, k, v = flash_case(BH, S, hd, dtype, causal, H, KV, seed=10 * i, Skv=Skv, q_scale=q_scale)
+        out = fl.flash_attention_cuda(q, k, v, causal=causal, n_heads=H, n_kv_heads=KV)
+        torch.cuda.synchronize()
+        ref = fl.flash_attention_plain(q, k, v, causal=causal, n_heads=H, n_kv_heads=KV)
+        tol = 2e-3 if dtype == torch.float32 else 1e-2
+        err = float((out.float() - ref.float()).abs().max())
+        print(f"  (BH,Sq,Skv,hd)=({BH},{S},{k.shape[1]},{hd}) {str(dtype).split('.')[-1]} "
+              f"causal={causal} Hq={H} Hkv={KV} q x {q_scale}: max abs err {err:.3e}")
+        check(bool(torch.isfinite(out).all()), "flash output not finite")
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    bad_shapes = [(64, 64, 136, True), (64, 64, 84, True), (96, 96, 64, True), (64, 128, 64, True)]
+    for Sq, Skv, hd, causal in bad_shapes:                # a bf16 CUDA tensor it cannot take raises
+        q, k, v = flash_case(1, Sq, hd, bf16, causal, 1, 1, seed=7, Skv=Skv)
+        try:
+            fl.flash_attention_cuda(q, k, v, causal=causal)
+        except ValueError:
+            continue
+        check(False, f"flash took Sq={Sq} Skv={Skv} hd={hd} causal={causal}")
+    # stablelm-3b (32 heads of 80): the trainer at batch 1, S = 4096, and the
+    # serving prefill at batch 4, prompt 4096; jamba-v0.1-52b's attention
+    # layer at serving: batch 4, Hq 32 / Hkv 8, hd 128
+    row = flash_shape("stablelm-3b trainer", 1, 32, 32, 4096, 80, seed=999)
+    flash_shape("stablelm-3b serving prefill", SERVE_B, 32, 32, SERVE_P, 80, seed=777)
+    flash_shape("jamba-v0.1-52b serving prefill", SERVE_B, 32, 8, SERVE_P, 128, seed=1234)
+    return row
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:

@@ -23,8 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("quantize.cu", "fused_add.cu", "flash_attn.cu", "topk_mask.cu", "wkv.cu",
-           "ssm_scan.cu", "probe_copy.cu")
+SOURCES = ("quantize.cu", "fused_add.cu", "flash_attn.cu", "flash_attn_sm90.cu", "topk_mask.cu",
+           "wkv.cu", "ssm_scan.cu", "probe_copy.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -38,6 +38,7 @@ _SIGNATURES = {
     "repro_fused_add_bf16": [_P, _P, _I, _L, _P],
     "repro_flash_attn_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "repro_flash_attn_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "repro_flash_attn_bf16_nv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "repro_topk_mask_f32": [_P, _P, _P, _L, _P],
     "repro_topk_mask_bf16": [_P, _P, _P, _L, _P],
     "repro_wkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P],

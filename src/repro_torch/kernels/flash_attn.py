@@ -2,10 +2,18 @@
 grouped-query heads.
 
 Counterpart of ``repro/kernels/flash_attn.py`` (``flash_attention_pallas``).
-The CUDA kernel is in ``csrc/flash_attn.cu``: one thread block per
-(batch*head, 64-row query tile), a loop over key/value tiles inside the
-block, running (max, denominator, accumulator) in f32 registers.  Forward
-only: the gradient is taken through the plain chunked attention of
+Two CUDA kernels, one per input type:
+
+- bf16: ``csrc/flash_attn_sm90.cu``, on Hopper's tensor cores (``wgmma``).
+  A block owns 128 query rows (two warpgroups of 64); one producer warp
+  loads 128-row K and V tiles with TMA into a two-stage ring; both products
+  run on the tensor cores with f32 accumulation, P rounded to bf16 in
+  registers between them;
+- float32: ``csrc/flash_attn.cu``, FMAs on the CUDA cores (the tensor cores
+  would round f32 to TF32): one block per 64-row query tile.
+
+Both keep the running (max, denominator, accumulator) in f32 registers.
+Forward only: the gradient is taken through the plain chunked attention of
 ``repro_torch.models.attention``.
 """
 from __future__ import annotations
@@ -17,7 +25,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-TILE = 64            # query and key/value rows per tile of the CUDA kernel
+TILE = 64            # Sq and Skv must be multiples of this for the CUDA kernels
 MAX_HEAD_DIM = 128
 
 
@@ -43,6 +51,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def check_kernel_shape(Sq: int, Skv: int, hd: int, causal: bool) -> None:
+    """Raise ``ValueError`` for a shape the CUDA kernels do not take."""
+    if hd <= 0 or hd % 8 or hd > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must be a multiple of 8 up to {MAX_HEAD_DIM}, got {hd}")
+    if Sq <= 0 or Skv <= 0 or Sq % TILE or Skv % TILE:
+        raise ValueError(f"Sq and Skv must be positive multiples of {TILE}, got {Sq}, {Skv}")
+    if causal and Sq != Skv:
+        raise ValueError("causal attention needs Sq == Skv")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, n_heads: int = 1,
                          n_kv_heads: int = 1) -> torch.Tensor:
@@ -52,7 +70,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Query row ``b`` reads key/value row ``(b // Hq) * Hkv + (b % Hq) // g``
     with ``g = Hq / Hkv``; no repeat is materialised.  float32 or bfloat16;
     ``hd`` a multiple of 8 up to 128; ``Sq``, ``Skv`` multiples of 64;
-    ``Sq == Skv`` when causal."""
+    ``Sq == Skv`` when causal; contiguous (and, in bf16, 16-byte aligned)."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     BH, Sq, hd = q.shape
@@ -65,16 +83,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, n_heads=n_heads,
                                      n_kv_heads=n_kv_heads)
-    if hd % 8 or hd > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim must be a multiple of 8 up to {MAX_HEAD_DIM}, got {hd}")
-    if Sq % TILE or Skv % TILE:
-        raise ValueError(f"Sq and Skv must be multiples of {TILE}, got {Sq}, {Skv}")
-    if causal and Sq != Skv:
-        raise ValueError("causal attention needs Sq == Skv")
+    check_kernel_shape(Sq, Skv, hd, causal)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("expected contiguous tensors")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must lie on one device")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bf16 q, k, v must start on 16-byte boundaries (TMA)")
     lib = build.library()
     out = torch.empty_like(q)
     entry = "repro_flash_attn_f32" if q.dtype == torch.float32 else "repro_flash_attn_bf16"

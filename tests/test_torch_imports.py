@@ -119,8 +119,8 @@ def test_every_subpackage_is_a_package_and_sources_ship():
     names = {m.name for m in pkgutil.iter_modules([str(PKG)])}
     assert {"configs", "kernels", "models", "optim", "data", "parallel", "core", "launch"} <= names
     assert {p.name for p in (PKG / "kernels" / "csrc").glob("*.cu")} == {
-        "quantize.cu", "fused_add.cu", "flash_attn.cu", "topk_mask.cu", "wkv.cu", "ssm_scan.cu",
-        "probe_copy.cu"}
+        "quantize.cu", "fused_add.cu", "flash_attn.cu", "flash_attn_sm90.cu", "topk_mask.cu",
+        "wkv.cu", "ssm_scan.cu", "probe_copy.cu"}
     from repro_torch.kernels import build
     assert set(build.SOURCES) == {p.name for p in (PKG / "kernels" / "csrc").glob("*.cu")}
     assert (PKG / "launch" / "serve.py").exists() and (PKG / "models" / "rwkv.py").exists()

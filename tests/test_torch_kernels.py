@@ -19,7 +19,8 @@ from repro.kernels.flash_attn import flash_attention_pallas
 from repro.kernels.topk_mask import topk_mask_2d as jtopk_mask_2d
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.flash_attn import flash_attention_cuda, flash_attention_plain
+from repro_torch.kernels.flash_attn import (check_kernel_shape, flash_attention_cuda,
+                                            flash_attention_plain)
 from repro_torch.kernels.probe import probe_copy_2d, probe_copy_2d_plain
 from repro_torch.kernels.quantize import BLOCK, dequantize_int8_2d, dequantize_int8_2d_plain
 from repro_torch.kernels.topk_mask import topk_mask_2d, topk_mask_2d_plain
@@ -252,6 +253,43 @@ def test_flash_plain_bf16_keeps_dtype():
     ref = flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
     # the only difference is the final rounding to bf16 (2^-8 relative)
     np.testing.assert_allclose(np32(out), np32(ref), rtol=1e-2, atol=1e-2)
+
+
+# (Sq, Skv, hd, causal) of every call chip_smoke.py makes of the CUDA kernels
+FLASH_KERNEL_SHAPES = [
+    (256, 256, 64, True), (128, 128, 64, False), (512, 512, 32, True), (128, 128, 128, True),
+    (256, 256, 80, True), (1024, 1024, 128, True), (512, 512, 80, False), (192, 192, 72, True),
+    (4096, 4096, 80, True), (64, 64, 80, True), (192, 192, 96, True),
+    (256, 256, 128, True), (256, 256, 32, True), (128, 320, 80, False), (192, 64, 128, False),
+    (4096, 4096, 128, True),
+]
+
+
+@pytest.mark.parametrize("Sq,Skv,hd,causal", FLASH_KERNEL_SHAPES)
+def test_flash_kernel_takes_chip_smoke_shapes(Sq, Skv, hd, causal):
+    check_kernel_shape(Sq, Skv, hd, causal)
+
+
+@pytest.mark.parametrize("Sq,Skv,hd,causal", [
+    (64, 64, 136, True),      # hd above 128
+    (64, 64, 84, True),       # hd not a multiple of 8
+    (96, 96, 64, True),       # S not a multiple of 64
+    (64, 128, 64, True),      # causal with Sq != Skv
+    (128, 0, 64, False),
+])
+def test_flash_kernel_refuses_shapes(Sq, Skv, hd, causal):
+    with pytest.raises(ValueError):
+        check_kernel_shape(Sq, Skv, hd, causal)
+
+
+def test_flash_cpu_branch_takes_any_shape():
+    """On CPU tensors the wrapper runs the plain version, whatever the shape."""
+    rng = np.random.default_rng(3)
+    q, k, v = (to_torch(rng.standard_normal((2, 96, 84)).astype(np.float32)) for _ in range(3))
+    build.reset_launch_counts()
+    out = flash_attention_cuda(q, k, v, causal=True)
+    assert build.launch_counts["flash_attention"] == 0
+    torch.testing.assert_close(out, flash_attention_plain(q, k, v, causal=True))
 
 
 def test_wrappers_validate_inputs():

@@ -405,13 +405,17 @@ def phase_topk(R_main: int) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
-def wkv_inputs(B, H, S, hd, seed, model_decay=False):
+def wkv_inputs(B, H, S, hd, seed, decay="random"):
     r, k, v = (randn(B, H, S, hd, seed=seed + i) * 0.5 for i in range(3))
-    if model_decay:
+    if decay == "model":
         # the model's init: per-channel w0 from -6 (slow) to -1 (fast) plus a small data term
         ratio = torch.arange(H * hd, device=DEV, dtype=torch.float32).reshape(H, hd) / (H * hd - 1)
         w0 = -6.0 + 5.0 * ratio ** 0.7
         logw = -torch.exp(w0[None, :, None, :] + 0.1 * randn(B, H, S, hd, seed=seed + 3))
+    elif decay == "harsh":
+        # per-step log-decay from -0.05 down to -20: a chunk's cumsums underflow exp
+        g = torch.Generator(device=DEV).manual_seed(seed + 3)
+        logw = -torch.exp(torch.rand(B, H, S, hd, generator=g, device=DEV) * 6.0 - 3.0)
     else:
         logw = -torch.exp(randn(B, H, S, hd, seed=seed + 3) * 0.5 - 2.0)
     u = randn(H, hd, seed=seed + 4) * 0.1
@@ -425,48 +429,104 @@ def wkv_err(got, want) -> float:
     return max(float((a - b).abs().max()) for a, b in zip(got, want))
 
 
+def wkv_step(r, k, v, logw, u, s0):
+    """The step kernel (``csrc/wkv.cu``) at any shape, for holding it beside
+    the chunked one where the wrapper would take the chunked route; (B, H,
+    S, hd) contiguous inputs."""
+    B, H, S, hd = r.shape
+    y, s_out = torch.empty_like(r), torch.empty_like(s0)
+    sb, sh, st, _ = r.stride()
+    build.check(build.library().repro_wkv_f32(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(), s0.data_ptr(),
+        y.data_ptr(), s_out.data_ptr(), B, H, S, hd, sb, sh, st, build.current_stream(r.device)),
+        "repro_wkv_f32")
+    return y, s_out
+
+
+def wkv_bound_ms(B, H, S, hd) -> tuple:
+    """(bound ms, by): bytes of r, k, v, logw, y, s0, s_out and u against the
+    f32 operations of the recurrence (y and the state update)."""
+    n = B * H * S * hd
+    t_bytes = 4 * (5 * n + 2 * B * H * hd * hd + H * hd) / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * hd * n / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_wkv() -> dict:
     print("[2e] wkv vs its plain chunked form (tolerance rtol = atol = 1e-4: f32 sums in another "
           "order, and the chunked form clips each pairwise decay at exp(-60) where the "
-          "recurrence underflows)")
-    for B, H, S, hd, chunk in [(2, 8, 64, 16, 16),       # rwkv6-1.6b smoke
-                               (2, 8, 37, 16, 16),       # ragged S
-                               (1, 4, 192, 64, 64), (2, 3, 100, 128, 32), (1, 2, 50, 8, 16),
-                               (4, 32, 1, 64, 128)]:     # one decode step
-        args = wkv_inputs(B, H, S, hd, seed=B * 100 + S + hd)
-        err = wkv_err(wk.wkv(*args), wk.wkv_plain(*args, chunk=chunk))
-        print(f"  (B,H,S,hd)=({B},{H},{S},{hd}): max abs err {err:.2e}")
-    # state chain: two half-sequence calls equal one call over the whole
-    r, k, v, logw, u, s0 = wkv_inputs(1, 4, 512, 64, seed=7, model_decay=True)
+          "recurrence underflows); chunked route (wkv_sm90.cu, tensor cores in 3xTF32) for "
+          "S >= 64 and hd 16 or 64, step route (wkv.cu) for the rest")
+    cases = [  # B, H, S, hd, plain chunk, decay
+        (2, 8, 64, 16, 16, "random"),         # rwkv6-1.6b smoke
+        (2, 8, 37, 16, 16, "random"),         # ragged S
+        (1, 4, 192, 64, 64, "random"), (2, 3, 100, 128, 32, "random"), (1, 2, 50, 8, 16, "random"),
+        (4, 32, 1, 64, 128, "random"),        # one decode step
+        # the chunked route's edges: one chunk, a chunk and one step, ragged;
+        # 64, 32 and 16 value columns a block; decays that underflow
+        (2, 4, 64, 64, 64, "random"), (2, 4, 65, 64, 65, "random"), (2, 4, 127, 64, 127, "random"),
+        (2, 32, 128, 64, 64, "model"), (4, 32, 256, 64, 64, "model"),
+        (1, 4, 128, 64, 64, "harsh"), (2, 8, 64, 16, 64, "harsh"), (2, 4, 127, 64, 127, "harsh"),
+        (2, 3, 100, 32, 100, "harsh"),
+    ]
+    for B, H, S, hd, chunk, decay in cases:
+        args = wkv_inputs(B, H, S, hd, seed=B * 100 + S + hd, decay=decay)
+        want = wk.wkv_plain(*args, chunk=chunk)
+        build.reset_launch_counts()
+        err = wkv_err(wk.wkv(*args), want)
+        chunked = build.route_counts["wkv_chunked"] == 1
+        check(chunked == wk.chunked_route(S, hd), f"wkv took the wrong route at S={S} hd={hd}")
+        line = f"  (B,H,S,hd)=({B},{H},{S},{hd}) {decay}: {'chunked' if chunked else 'step'} max abs err {err:.2e}"
+        if chunked:
+            line += f" (EV {wk.value_columns(B, H, hd)}); step kernel {wkv_err(wkv_step(*args), want):.2e}"
+        print(line)
+    # state chain: two half-sequence calls equal one call over the whole, and
+    # a chunked prefill then a step equal one call over both
+    r, k, v, logw, u, s0 = wkv_inputs(1, 4, 513, 64, seed=7, decay="model")
     y, s = wk.wkv(r, k, v, logw, u, s0)
     h = 256
     y1, s1 = wk.wkv(r[:, :, :h], k[:, :, :h], v[:, :, :h], logw[:, :, :h], u, s0)
-    y2, s2 = wk.wkv(r[:, :, h:], k[:, :, h:], v[:, :, h:], logw[:, :, h:], u, s1)
-    err = wkv_err((torch.cat([y1, y2], dim=2), s2), (y, s))
-    print(f"  state chain, 2 x 256 = 512 steps: max abs err {err:.2e}")
+    y2, s2 = wk.wkv(r[:, :, h:512], k[:, :, h:512], v[:, :, h:512], logw[:, :, h:512], u, s1)
+    y3, s3 = wk.wkv(r[:, :, 512:], k[:, :, 512:], v[:, :, 512:], logw[:, :, 512:], u, s2)
+    err = wkv_err((torch.cat([y1, y2, y3], dim=2), s3), (y, s))
+    print(f"  state chain, 256 + 256 steps (chunked) + 1 step (step kernel) = 513: max abs err {err:.2e}")
     # the model's layout, read through a transpose
     tr = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (r, k, v, logw)]
     err = wkv_err(wk.wkv(*tr, u, s0), (y, s))
     print(f"  (B,S,H,hd) layout through strides: max abs err {err:.2e}")
 
-    B, H, S, hd = 4, 32, 4096, 64                        # rwkv6-1.6b serving: batch 4, prompt 4096
-    args = wkv_inputs(B, H, S, hd, seed=11, model_decay=True)
-    got, want = wk.wkv(*args), wk.wkv_plain(*args, chunk=128)
-    err = wkv_err(got, want)
-    del got, want
-    ms = time_ms(lambda: wk.wkv(*args))
-    plain_ms = time_ms(lambda: wk.wkv_plain(*args, chunk=128), reps=3, warmup=1)
-    n = B * H * S * hd
-    nbytes = 4 * (5 * n + 2 * B * H * hd * hd + H * hd)  # r, k, v, logw, y; s0, s_out; u
-    flops = 4.0 * hd * n                                 # y and the state update, per element
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    print(f"  serving shape (B,H,S,hd)=({B},{H},{S},{hd}) f32: max abs err {err:.2e}, kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.3f} ms "
-          f"(bytes {t_bytes:.3f}, f32 operations {t_ops:.3f})")
-    return {"name": "wkv", "route": "cuda", "source": CSRC + "wkv.cu",
-            "replaces": "src/repro/kernels/wkv.py:78", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+    # rwkv6-1.6b: serving prefill (batch 4, prompt 4096), trainer (batch 1,
+    # S = 4096), decode step (batch 4); each route timed at each shape
+    row = None
+    for label, B, S in [("serving prefill", SERVE_B, SERVE_P), ("trainer", 1, 4096)]:
+        H, hd = 32, 64
+        args = wkv_inputs(B, H, S, hd, seed=11 + B, decay="model")
+        want = wk.wkv_plain(*args, chunk=128)
+        err = wkv_err(wk.wkv(*args), want)
+        step_err = wkv_err(wkv_step(*args), want)
+        del want
+        ms = time_device_ms(lambda: wk.wkv(*args))
+        step_ms = time_device_ms(lambda: wkv_step(*args))
+        bound, by = wkv_bound_ms(B, H, S, hd)
+        print(f"  {label} (B,H,S,hd)=({B},{H},{S},{hd}) f32: chunked (EV {wk.value_columns(B, H, hd)}) "
+              f"{ms:.4f} ms, err {err:.2e}; step {step_ms:.4f} ms, err {step_err:.2e} "
+              f"({step_ms / ms:.2f}x the chunked); bound {bound:.4f} ms ({by}, "
+              f"{100 * bound / ms:.0f} % of the chunked)")
+        if row is None:
+            plain_ms = time_ms(lambda: wk.wkv_plain(*args, chunk=128), reps=3, warmup=1)
+            print(f"    plain {plain_ms:.3f} ms")
+            row = {"name": "wkv", "route": "cuda", "source": CSRC + "wkv_sm90.cu",
+                   "replaces": "src/repro/kernels/wkv.py:78", "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None}
+        del args
+        torch.cuda.empty_cache()
+    args = wkv_inputs(SERVE_B, 32, 1, 64, seed=13)
+    err = wkv_err(wk.wkv(*args), wk.wkv_plain(*args))
+    ms = time_device_ms(lambda: wk.wkv(*args))
+    bound, by = wkv_bound_ms(SERVE_B, 32, 1, 64)
+    print(f"  decode step (B,H,S,hd)=({SERVE_B},32,1,64): step {ms:.4f} ms, err {err:.2e}, bound "
+          f"{bound:.4f} ms ({by})")
+    return row
 
 
 def ssm_inputs(B, S, n, di, seed, dtype=torch.float32, model_layout=True):
@@ -791,7 +851,7 @@ def run_trainer(argv: list) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     result = train.main(argv)
-    counts = dict(build.launch_counts)
+    counts = {**build.launch_counts, **build.route_counts}
     torch.cuda.synchronize()
     result["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     return result, counts
@@ -872,6 +932,7 @@ def phase_rwkv_trainer(layers: int) -> dict:
     check(abs(losses[0] - math.log(65536)) <= 0.5, f"step-0 loss {losses[0]} not near ln 65536 = 11.09")
     # forward and the remat recompute of every layer, every step
     check(counts["wkv"] == layers * steps * 2, f"expected {layers * steps * 2} wkv launches")
+    check(counts["wkv_chunked"] == counts["wkv"], "a wkv launch of the trainer missed the chunked route")
     return counts
 
 
@@ -886,7 +947,7 @@ def run_serve(argv: list) -> tuple:
     held = torch.cuda.memory_allocated() / 2 ** 30
     build.reset_launch_counts()
     result = serve.main(argv)
-    counts = dict(build.launch_counts)
+    counts = {**build.launch_counts, **build.route_counts}
     torch.cuda.synchronize()
     result["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"  device memory held before the run {held:.2f} GiB, after it "
@@ -1027,8 +1088,12 @@ def main() -> None:
     phase_serve("7", "stablelm-3b", {"flash_attention": get_config("stablelm-3b").num_layers},
                 [{"attn_chunk": 512}])
     rwkv_cfg = get_config("rwkv6-1.6b")
-    rwkv_counts = phase_serve("8", "rwkv6-1.6b", {"wkv": rwkv_cfg.num_layers * (1 + SERVE_G)},
+    # every layer's prefill on the chunked route, every decode step on the step route
+    rwkv_counts = phase_serve("8", "rwkv6-1.6b", {"wkv": rwkv_cfg.num_layers * (1 + SERVE_G),
+                                                  "wkv_chunked": rwkv_cfg.num_layers},
                               [{"ssm": dataclasses.replace(rwkv_cfg.ssm, chunk_size=64)}])
+    print(f"  wkv launches on rwkv6-1.6b serving: {rwkv_counts['wkv']}, of them "
+          f"{rwkv_counts['wkv_chunked']} on the chunked route (the prefill's)")
     check_float32("rwkv6-1.6b", 2)
     topk_counts = phase_topk_trainer(args.ternary_layers)
     phase_rwkv_trainer(args.ternary_layers)

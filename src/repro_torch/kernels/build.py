@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("quantize.cu", "fused_add.cu", "flash_attn.cu", "flash_attn_sm90.cu", "topk_mask.cu",
-           "wkv.cu", "ssm_scan.cu", "probe_copy.cu")
+           "wkv.cu", "wkv_sm90.cu", "ssm_scan.cu", "probe_copy.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -42,6 +42,7 @@ _SIGNATURES = {
     "repro_topk_mask_f32": [_P, _P, _P, _L, _P],
     "repro_topk_mask_bf16": [_P, _P, _P, _L, _P],
     "repro_wkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P],
+    "repro_wkv_chunked_f32": [_P] * 8 + [_I] * 5 + [_L] * 3 + [_P],
     "repro_ssm_scan": [_P] * 6 + [_I] * 5 + [_L] * 10 + [_P],
 }
 
@@ -54,11 +55,14 @@ launch_counts: Dict[str, int] = {"quantize_int8_2d": 0, "ternarize_2d": 0,
                                  "fused_add_2d": 0, "flash_attention": 0,
                                  "topk_mask_2d": 0, "wkv": 0, "ssm_scan": 0,
                                  "dequantize_int8_2d": 0, "probe_copy_2d": 0}
+# launches of a kernel's second route, counted in launch_counts as well
+route_counts: Dict[str, int] = {"wkv_chunked": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, route_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def find_nvcc() -> str:

@@ -7,11 +7,21 @@ Counterpart of ``repro/kernels/wkv.py`` (``wkv_pallas``), with its
 ``(B, H, S, hd)`` signature.  ``wkv_plain`` is the port's one copy of the
 chunked form of ``repro.models.rwkv.wkv_chunked`` (an intra-chunk
 decay-weighted attention plus a carried state; the pairwise decay is
-clipped at exp(-60), where the true value underflows anyway).  The CUDA
-kernel in ``csrc/wkv.cu`` runs the recurrence itself, one step at a time,
-so it takes any S, including the S = 1 of a decode step, and ignores
-``chunk``; it reads its inputs through their strides (unit stride along
-hd), so a transposed view costs no copy.
+clipped at exp(-60), where the true value underflows anyway).
+
+On a CUDA tensor ``wkv`` takes one of two hand-written kernels, both of
+which ignore ``chunk`` and read their inputs through their strides (unit
+stride along hd), so a transposed view costs no copy:
+
+- the chunked route, ``csrc/wkv_sm90.cu``, for S >= 64 and hd 16 or 64
+  (rwkv6-1.6b's prefill and trainer): chunks of 64 steps whose products run
+  on the tensor cores in 3xTF32, the state carried on chip;
+- the step route, ``csrc/wkv.cu``, for every other shape (hd a multiple of
+  8 up to 128), the S = 1 of a decode step among them: the recurrence
+  itself, one step at a time.
+
+``build.launch_counts["wkv"]`` counts the launches of both,
+``build.route_counts["wkv_chunked"]`` those of the chunked route.
 """
 from __future__ import annotations
 
@@ -22,6 +32,24 @@ import torch
 from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 128
+CHUNK = 64                      # steps a chunk of the chunked route
+CHUNKED_HEAD_DIMS = (16, 64)    # head dims the chunked route is built for
+BLOCKS_IN_FLIGHT = 128          # the chunked route splits the value columns until this many
+
+
+def chunked_route(S: int, hd: int) -> bool:
+    """Whether a CUDA call of this shape takes the chunked kernel."""
+    return S >= CHUNK and hd in CHUNKED_HEAD_DIMS
+
+
+def value_columns(B: int, H: int, hd: int) -> int:
+    """The value columns one block of the chunked kernel owns: all hd of
+    them, halved (down to 16) while fewer than ``BLOCKS_IN_FLIGHT`` blocks
+    would run."""
+    ev = hd
+    while ev > 16 and B * H * (hd // ev) < BLOCKS_IN_FLIGHT:
+        ev //= 2
+    return ev
 
 
 def wkv_plain(r, k, v, logw, u, s0, chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -64,9 +92,10 @@ def _check(r, k, v, logw, u, s0) -> None:
 
 def wkv(r, k, v, logw, u, s0, chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
     """The WKV recurrence with ``wkv_pallas``'s signature (see
-    ``wkv_plain``): the plain version on CPU tensors, the CUDA kernel on
-    CUDA tensors (``hd`` a multiple of 8 up to 128).  On the card, y comes
-    back with r's strides."""
+    ``wkv_plain``): the plain version on CPU tensors; on CUDA tensors the
+    chunked kernel where ``chunked_route`` says so, else the step kernel
+    (``hd`` a multiple of 8 up to 128).  On the card, y comes back with r's
+    strides."""
     _check(r, k, v, logw, u, s0)
     if not r.is_cuda:
         return wkv_plain(r, k, v, logw, u, s0, chunk)
@@ -78,17 +107,31 @@ def wkv(r, k, v, logw, u, s0, chunk: int = 64) -> Tuple[torch.Tensor, torch.Tens
     # the kernel reads all four through r's strides and writes y with them:
     # (B, H, S, hd) or the model's (B, S, H, hd) seen through a transpose
     dense = r.is_contiguous() or r.transpose(1, 2).is_contiguous()
-    if not dense or any(t.stride() != r.stride() for t in (k, v, logw)):
+    chunked = chunked_route(S, hd)
+    # the chunked kernel moves 16-byte pieces: strides in whole pieces, aligned data
+    aligned = all(t.data_ptr() % 16 == 0 for t in (r, k, v, logw)) and all(
+        x % 4 == 0 for x in r.stride()[:3])
+    if (not dense or any(t.stride() != r.stride() for t in (k, v, logw))
+            or (chunked and not aligned)):
         r, k, v, logw = (t.contiguous() for t in (r, k, v, logw))
     u, s0 = u.contiguous(), s0.contiguous()
     lib = build.library()
     y = torch.empty_strided(r.shape, r.stride(), dtype=torch.float32, device=r.device)
     s_out = torch.empty_like(s0)
     sb, sh, st, _ = r.stride()
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
+            s0.data_ptr(), y.data_ptr(), s_out.data_ptr())
     with torch.cuda.device(r.device):
-        code = lib.repro_wkv_f32(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-                                 u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-                                 B, H, S, hd, sb, sh, st, build.current_stream(r.device))
-    build.check(code, "repro_wkv_f32")
+        stream = build.current_stream(r.device)
+        if chunked:
+            name = "repro_wkv_chunked_f32"
+            code = lib.repro_wkv_chunked_f32(*ptrs, B, H, S, hd, value_columns(B, H, hd),
+                                             sb, sh, st, stream)
+        else:
+            name = "repro_wkv_f32"
+            code = lib.repro_wkv_f32(*ptrs, B, H, S, hd, sb, sh, st, stream)
+    build.check(code, name)
     build.launch_counts["wkv"] += 1
+    if chunked:
+        build.route_counts["wkv_chunked"] += 1
     return y, s_out

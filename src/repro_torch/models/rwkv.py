@@ -9,13 +9,16 @@ Counterpart of ``repro/models/rwkv.py``.  The WKV recurrence per head
 Kernel dispatch differs from the reference on purpose.  JAX sends a WKV
 call to its Pallas kernel only for ``S > 1`` and ``S % chunk_size == 0``,
 and everything else (every ``S = 1`` decode step) to the chunked jnp form,
-because its kernel walks whole chunks.  The port's kernel
-(``repro_torch.kernels.wkv``) runs the recurrence one step at a time and
-takes any S, so on a CUDA tensor, with ``use_pallas`` not ``never``,
-*every* WKV call goes through it, decode included: no plain code on the
-card's serving path.  The kernel reads the model's (B, S, H, hd) tensors
-through their strides (no transposes).  Its gradient is the chunked
-form's, recomputed in backward, as ``_wkv_pallas_cv`` does in JAX.
+because its kernel walks whole chunks.  The port's wrapper
+(``repro_torch.kernels.wkv``) has two hand-written kernels and takes any S:
+a chunked one on the tensor cores for S >= 64 (a prefill, a training
+step; any S past the last whole chunk included) and one that runs the
+recurrence a step at a time for the rest (every decode step).  So on a
+CUDA tensor, with ``use_pallas`` not ``never``, *every* WKV call goes
+through a kernel, decode included: no plain code on the card's serving
+path.  Both read the model's (B, S, H, hd) tensors through their strides
+(no transposes).  The gradient is the chunked form's, recomputed in
+backward, as ``_wkv_pallas_cv`` does in JAX.
 
 Token-shift is the static-mix variant of the reference (the
 data-dependent decay is kept).  The four mixing/decay leaves ``w_decay``,

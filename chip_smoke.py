@@ -31,7 +31,17 @@ through their entry points:
 - one Mamba mixer of jamba-v0.1-52b at full width in float32, forward and
   gradients, through the selective-scan kernel against the plain scan;
 - the trainer with ``--compression topk`` (stablelm-3b) and the trainer on
-  rwkv6-1.6b (int8), 8 layers each.
+  rwkv6-1.6b (int8), 8 layers each;
+- the paper's own workloads, VGG-16, ResNet-50 and ResNet-101 at full width
+  (batch 32, 224x224, 1,000 classes, float32): the measured fwd+bwd
+  ``t_batch`` with TF32 off (the V100 constants the simulator uses are
+  float32) and a TF32 reading, through ``examples/torch_measured_whatif.main``,
+  which also prices each model on 64 workers at 10 / 25 / 100 Gbps
+  (``timeline.from_cnn`` + ``core.simulator.simulate``) beside the V100's
+  ``t_batch``; two momentum-SGD steps of each model through
+  ``launch.train.make_train_step`` with int8 gradient sync (and ternary and
+  topk for ResNet-50), held against the plain codec under cuDNN's
+  deterministic algorithms.
 
 Launch counters, reset right before each run and read right after, show
 that the run went through the kernels.
@@ -69,6 +79,7 @@ sys.path.insert(0, str(REPO / "src"))
 
 import torch.nn.functional as F  # noqa: E402
 
+from examples import torch_measured_whatif as whatif  # noqa: E402
 from repro_torch.configs import INPUT_SHAPES, CommConfig, InputShape, get_config  # noqa: E402
 from repro_torch.core import timeline  # noqa: E402
 from repro_torch.core.addest import H100_LAUNCH_OVERHEAD, AddEst  # noqa: E402
@@ -83,10 +94,14 @@ from repro_torch.kernels import topk_mask as tm  # noqa: E402
 from repro_torch.kernels import wkv as wk  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import mamba as mb  # noqa: E402
+from repro_torch.models.cnn import CNN_NAMES, CNNConfig, cnn_api  # noqa: E402
 from repro_torch.models.jamba import block_layout as jamba_layout  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.parallel.collectives import InProcessWorld  # noqa: E402
-from repro_torch.parallel.grad_sync import make_plan, sync_grads_per_rank  # noqa: E402
+from repro_torch.optim.optimizers import get_optimizer  # noqa: E402
+from repro_torch.optim.schedule import get_schedule  # noqa: E402
+from repro_torch.parallel.grad_sync import make_plan, sync_grads, sync_grads_per_rank  # noqa: E402
+from repro_torch.utils.tree import value_and_grad  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -1046,6 +1061,149 @@ def check_float32(arch: str, B: int, layers: int = 0) -> None:
     check(rel <= 1e-3, f"{arch} float32: kernel and plain prefill logits disagree")
 
 
+# ---------------------------------------------------------------------------
+# phases 18-20: the paper's workloads (VGG-16, ResNet-50/101) at full width
+# ---------------------------------------------------------------------------
+
+CNN_BATCH = 32
+
+
+def phase_cnn_step() -> dict:
+    """``examples/torch_measured_whatif.main`` per model: the measured f32
+    ``t_batch`` (TF32 off), the TF32 reading and both what-if tables."""
+    print(f"[18] the paper's workloads through examples/torch_measured_whatif.py: full width, batch "
+          f"{CNN_BATCH}, 224x224, 1000 classes, float32; 2 warm-ups + 5 timed fwd+bwd per model "
+          f"and precision")
+    out = {}
+    for name in CNN_NAMES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        build.reset_launch_counts()
+        res = whatif.main(["--model", name, "--batch", str(CNN_BATCH), "--repeats", "5",
+                           "--warmup", "2"])
+        check(all(c == 0 for c in build.launch_counts.values()),
+              "a fwd+bwd of a CNN launched a codec kernel")
+        for key in ("t_batch_f32", "t_batch_tf32"):
+            check(math.isfinite(res[key]) and res[key] > 0, f"{name}: {key} not a positive time")
+        for table in (res["scaling"], *res["schedulers"].values()):
+            check(all(0.0 < f <= 1.0 for row in table.values() for f in row.values()),
+                  f"{name}: a scaling factor outside (0, 1]")
+        out[name] = res
+    return out
+
+
+def cnn_batches(steps: int) -> list:
+    g = torch.Generator(device=DEV).manual_seed(1)
+    return [{"images": torch.randn(CNN_BATCH, 224, 224, 3, generator=g, device=DEV),
+             "labels": torch.randint(0, 1000, (CNN_BATCH,), generator=g, device=DEV)}
+            for _ in range(steps)]
+
+
+def run_cnn_trainer(name: str, compression: str, steps: int = 2,
+                    use_pallas: str = "auto") -> dict:
+    """``steps`` momentum-SGD steps (constant lr 0.01, explicit comm) of a
+    full-width CNN through ``launch.train.make_train_step``, seed 0; then the
+    grad sync alone on the last gradients, timed by CUDA events."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    api = cnn_api(CNNConfig(name, use_pallas=use_pallas))
+    params = api.init(torch.Generator(device=DEV).manual_seed(0))
+    opt, world = get_optimizer("momentum"), InProcessWorld(1)
+    comm = CommConfig(mode="explicit", compression=compression)
+    step_fn = train.make_train_step(api, opt, world, comm, get_schedule("constant", 0.01, 0, steps))
+    opt_state = opt.init(params)
+    batches = cnn_batches(steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    counts = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, grads = value_and_grad(api.loss_fn, params, batches[-1])
+    sync_ms = time_ms(lambda: sync_grads(grads, world, comm, use_kernels=use_pallas != "never"),
+                      reps=3, warmup=1)
+    plan, _ = make_plan(api.init(None, device="meta"), comm.fusion_buffer_mb)
+    return {"losses": losses, "step_s": statistics.median(times[1:]), "first_s": times[0],
+            "sync_ms": sync_ms, "peak_gib": peak, "counts": counts, "buckets": plan.n_buckets}
+
+
+def phase_cnn_trainer() -> dict:
+    steps = 2
+    print(f"[19] CNN trainer through launch.train.make_train_step: full width, batch {CNN_BATCH}, "
+          f"224x224, float32 (TF32 off), explicit comm, momentum SGD, lr 0.01, {steps} steps; "
+          f"int8 for each model (against a use_pallas=never run of the same seed), ternary and topk "
+          f"for resnet50")
+    out = {}
+    with whatif.tf32(False):                   # the V100 times are float32
+        for name, compression in [(n, "int8") for n in CNN_NAMES] + [("resnet50", "ternary"),
+                                                                     ("resnet50", "topk")]:
+            r = run_cnn_trainer(name, compression, steps)
+            c, nb = r["counts"], r["buckets"]
+            print(f"  {name} {compression}: losses {r['losses']}; step {r['step_s'] * 1e3:.2f} ms "
+                  f"(median of steps after the first; first {r['first_s'] * 1e3:.1f} ms), "
+                  f"{CNN_BATCH / r['step_s']:.1f} images/s, grad sync alone {r['sync_ms']:.3f} ms, "
+                  f"peak memory {r['peak_gib']:.2f} GiB; {nb} buckets; launches {c}")
+            check(all(math.isfinite(x) for x in r["losses"]), f"{name} {compression}: a loss is not finite")
+            if compression == "int8":
+                check(c["quantize_int8_2d"] == c["dequantize_int8_2d"] == c["fused_add_2d"] == nb * steps,
+                      f"{name}: expected one int8 encode, decode and add per bucket and step ({nb} x {steps})")
+                ref = run_cnn_trainer(name, compression, steps, use_pallas="never")
+                check(all(n == 0 for n in ref["counts"].values()), "the plain run launched a kernel")
+                print(f"    plain codec: losses {ref['losses']}; step {ref['step_s'] * 1e3:.2f} ms, "
+                      f"grad sync alone {ref['sync_ms']:.3f} ms")
+                # cuDNN's default backward algorithms accumulate in an order that changes
+                # from run to run, and one flipped int8 code moves the next loss: the runs
+                # held against each other take cuDNN's deterministic algorithms
+                torch.backends.cudnn.deterministic = True
+                try:
+                    det = [run_cnn_trainer(name, compression, steps, use_pallas=u)["losses"]
+                           for u in ("auto", "never")]
+                finally:
+                    torch.backends.cudnn.deterministic = False
+                for i in range(steps):
+                    spread = abs(r["losses"][i] - ref["losses"][i]) / abs(ref["losses"][i])
+                    rel = abs(det[0][i] - det[1][i]) / abs(det[1][i])
+                    print(f"    step {i}, cuDNN deterministic: kernels {det[0][i]:.7f} vs plain "
+                          f"{det[1][i]:.7f} (rel diff {rel:.2e}, tolerance 1e-6: float32 model, "
+                          f"bit-exact codes); default algorithms {spread:.2e} apart")
+                    check(rel <= 1e-6, f"{name}: kernel and plain CNN trainer disagree")
+                r["plain"] = ref
+            elif compression == "ternary":
+                check(c["ternarize_2d"] == c["dequantize_int8_2d"] == nb * steps,
+                      f"expected one ternary encode and decode per bucket and step ({nb} x {steps})")
+            else:
+                check(c["topk_mask_2d"] == c["fused_add_2d"] == nb * steps,
+                      f"expected one top-k mask and one add per bucket and step ({nb} x {steps})")
+            out[f"{name}/{compression}"] = r
+    return out
+
+
+def phase_cnn_whatif(measured: dict) -> None:
+    print("[20] what-if on the measured timelines: timeline.from_cnn(name, t_batch) and "
+          "simulate(n_workers=64, transport='ideal'); scaling factor at 10 / 25 / 100 Gbps")
+    for name, res in measured.items():
+        v100 = res["t_batch_v100"]
+        print(f"  {name}: t_batch f32 {res['t_batch_f32'] * 1e3:.2f} ms "
+              f"({CNN_BATCH / res['t_batch_f32']:.1f} img/s), TF32 {res['t_batch_tf32'] * 1e3:.2f} ms "
+              f"({CNN_BATCH / res['t_batch_tf32']:.1f} img/s); V100 constant {v100 * 1e3:.2f} ms "
+              f"({32 / v100:.0f} img/s at batch 32); bounds f32 {res['bound_f32'] * 1e3:.2f} ms, "
+              f"TF32 {res['bound_tf32'] * 1e3:.2f} ms")
+        for label, row in res["scaling"].items():
+            print(f"    {label:<14}" + "".join(f"  {bw:>3} Gbps {f:.4f}" for bw, f in row.items()))
+        check(res["scaling"]["this-device"][100] <= res["scaling"]["paper-V100"][100] + 1e-12
+              or res["t_batch_f32"] >= v100,
+              f"{name}: a shorter step than the V100's hid more communication")
+    print("  vgg16, scheduler x bandwidth on the measured f32 timeline (horovod_tcp, 64 workers):")
+    for sched, row in measured["vgg16"]["schedulers"]["this-device"].items():
+        print(f"    {sched:<10}" + "".join(f"  {bw:>3} Gbps {f:.4f}" for bw, f in row.items()))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32, help="depth of the int8 trainer run")
@@ -1112,6 +1270,9 @@ def main() -> None:
                                jamba_orders, layers=jamba_cfg.hybrid_block_layers)
     # 53 GB of float32 weights: batch 1 keeps the plain path under 60 GiB
     check_float32("jamba-v0.1-52b", 1, layers=jamba_cfg.hybrid_block_layers)
+    measured = phase_cnn_step()
+    phase_cnn_trainer()
+    phase_cnn_whatif(measured)
 
     # each kernel's launches on the path that runs it: ternarize on the
     # ternary trainer run, topk_mask on the topk run, wkv on rwkv6 serving,
@@ -1123,7 +1284,7 @@ def main() -> None:
         row["launches"] = paths.get(row["name"], trained["counts"])[row["name"]]
         check(row["launches"] > 0, f"{row['name']} was never launched on its path")
     check(len(rows) == 9, f"expected a row for each of the nine TPU kernels, got {len(rows)}")
-    print(f"[17] total {time.time() - t_start:.0f} s")
+    print(f"[21] total {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,20 +5,24 @@ scripts with per-parameter hooks to log *gradient-computation-done* times.
 Ported here:
 
 - ``from_layer_profile``: spread a known batch time over the layers;
+- ``from_cnn``: the paper's three workloads, from their analytic profiles
+  (``core.cnn_profiles``) and a batch time, the V100's by default or one
+  measured on this card;
 - ``measure``: time fwd+bwd on the params' device and spread the backward
   over the top-level parameter groups by FLOP share, as the reference does.
 
-``from_cnn`` and ``from_transformer`` need the CNN profiles and the
-analytic FLOP model, which are not ported yet.
+``from_transformer`` needs the analytic FLOP model, which is not ported yet.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.cnn_profiles import CNNProfile, get_profile
 
 # fraction of compute time spent in backward (2x fwd FLOPs for matmul nets)
 BWD_FRACTION = 2.0 / 3.0
@@ -59,6 +63,21 @@ def from_layer_profile(name: str, layer_bytes: Sequence[float],
         sizes.append(float(layer_bytes[i]))
     return GradTimeline(name, tuple(ready), tuple(sizes), t_back=t,
                         t_batch=float(t_batch))
+
+
+def from_cnn(name: str, t_batch: Optional[float] = None,
+             grad_dtype_bytes: int = 4) -> GradTimeline:
+    """Timeline for resnet50 / resnet101 / vgg16: the V100's batch time of
+    the paper's setup by default, or ``t_batch`` (seconds)."""
+    prof: CNNProfile = get_profile(name)
+    tb = t_batch if t_batch is not None else prof.t_batch_v100
+    flops = np.array([l.flops for l in prof.layers], dtype=np.float64)
+    total = flops.sum()
+    # layers with zero conv FLOPs (bn) get a tiny epsilon share
+    share = (flops + 1e-9 * total) / (flops + 1e-9 * total).sum()
+    bwd_times = share * (tb * BWD_FRACTION)
+    layer_bytes = [l.params * grad_dtype_bytes for l in prof.layers]
+    return from_layer_profile(prof.name, layer_bytes, bwd_times, tb)
 
 
 def measure(api, cfg, batch, repeats: int = 3, *, params=None,

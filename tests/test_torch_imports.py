@@ -89,7 +89,8 @@ def test_kernels_import_and_plain_versions_run_without_nvcc_or_triton(tmp_path):
 
 def _port_files():
     return (sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + [REPO / "chip_smoke.py"]
-            + sorted((REPO / "benchmarks").glob("torch_*.py")))
+            + sorted((REPO / "benchmarks").glob("torch_*.py"))
+            + sorted((REPO / "examples").glob("torch_*.py")))
 
 
 _FORBIDDEN = [re.compile(r"^\s*import\s+jax\b"), re.compile(r"^\s*from\s+jax\b"),

@@ -41,7 +41,14 @@ through their entry points:
   ``t_batch``; two momentum-SGD steps of each model through
   ``launch.train.make_train_step`` with int8 gradient sync (and ternary and
   topk for ResNet-50), held against the plain codec under cuDNN's
-  deterministic algorithms.
+  deterministic algorithms;
+- the experiment engine as a user runs it: ``python -m
+  repro_torch.experiments run`` on each of the eight golden suites and
+  ``compare`` against ``artifacts/golden/``, a process each; then
+  ``core.whatif.h100_whatif`` prices the stablelm-3b fwd+bwd measured above
+  on 8, 64 and 256 H100s, at an assumed MFU of 0.4 and at the MFU the
+  measurement reaches, with the add model of the data sheet and the one
+  ``AddEst.measure`` took on the card.
 
 Launch counters, reset right before each run and read right after, show
 that the run went through the kernels.
@@ -81,8 +88,9 @@ import torch.nn.functional as F  # noqa: E402
 
 from examples import torch_measured_whatif as whatif  # noqa: E402
 from repro_torch.configs import INPUT_SHAPES, CommConfig, InputShape, get_config  # noqa: E402
-from repro_torch.core import timeline  # noqa: E402
+from repro_torch.core import flops, timeline  # noqa: E402
 from repro_torch.core.addest import H100_LAUNCH_OVERHEAD, AddEst  # noqa: E402
+from repro_torch.core.whatif import h100_whatif  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM, device_put_batch  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attn as fl  # noqa: E402
@@ -105,7 +113,7 @@ from repro_torch.utils.tree import value_and_grad  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-BF16_FLOPS = 989e12                # dense tensor-core rate, bf16
+BF16_FLOPS = timeline.H100_BF16_FLOPS   # dense tensor-core rate, bf16
 F32_FLOPS = 67e12                  # CUDA cores, f32
 CSRC = "src/repro_torch/kernels/csrc/"
 
@@ -613,6 +621,21 @@ def phase_ssm_scan(main_shape=(4, 4096, 16, 8192)) -> dict:
           f"{err:.2e} (|y| up to {y_max:.2f}), kernel {ms:.3f} ms ({nbytes / ms / 1e6:.0f} GB/s), "
           f"plain {plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
           f"f32 operations {t_ops:.3f}); library: none (no single PyTorch call)")
+    del args
+    torch.cuda.empty_cache()
+    # the decode step, the shape of 224 of the 231 launches of jamba serving
+    # (7 Mamba layers x 32 tokens): timed behind the stream spin, as the wkv
+    # decode step is, since its device time is microseconds
+    dB = B
+    dargs = ssm_inputs(dB, 1, n, di, seed=52)
+    derr = ssm_err(ss.ssm_scan(*dargs), ss.ssm_scan_plain(*dargs))
+    dms = time_device_ms(lambda: ss.ssm_scan(*dargs))
+    d_state = dB * n * di
+    dbytes = 4 * (2 * d_state + dB * di + dB * n + 2 * dB * n * di)
+    d_bytes, d_ops = dbytes / HBM_BYTES_PER_S * 1e3, 4.0 * d_state / F32_FLOPS * 1e3
+    print(f"  decode step (B,S,n,d_inner)=({dB},1,{n},{di}) f32, model layout: max abs err {derr:.2e}, "
+          f"kernel {dms:.4f} ms (behind a stream spin), bound {max(d_bytes, d_ops):.4f} ms "
+          f"({'bytes' if d_bytes >= d_ops else 'operations'}, {dbytes} B)")
     return {"name": "ssm_scan", "route": "cuda", "source": CSRC + "ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan.py:65", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
@@ -783,7 +806,7 @@ def phase_calibration(elements: int) -> dict:
     return counts
 
 
-def phase_addest() -> None:
+def phase_addest() -> AddEst:
     print("[15] AddEst.measure on the card (CUDA events, L2 flushed before each add), against "
           "AddEst.h100()")
     est, model = AddEst.measure(device="cuda"), AddEst.h100()
@@ -792,9 +815,11 @@ def phase_addest() -> None:
         print(f"  {int(x):>10d} B: {t * 1e6:9.3f} us ({rate / 1e9:7.1f} GB/s); model {model(x) * 1e6:9.3f} us")
         check(0 < rate <= HBM_BYTES_PER_S * 1.05,
               f"AddEst.measure read {rate / 1e9:.0f} GB/s at {int(x)} B: above the card's peak")
+    return est
 
 
-def phase_timeline(trained: dict) -> None:
+def phase_timeline(trained: dict = None) -> tuple:
+    """``timeline.measure`` at full width and depth: (timeline, launches)."""
     cfg = get_config("stablelm-3b")
     print(f"[16] timeline.measure: stablelm-3b full width and depth ({cfg.num_layers} layers), S = 4096, "
           f"batch 1, repeats 2")
@@ -807,8 +832,9 @@ def phase_timeline(trained: dict) -> None:
     tl = timeline.measure(api, cfg, batch, repeats=2)
     counts = dict(build.launch_counts)
     ready = tl.ready_times
-    print(f"  t_batch {tl.t_batch:.3f} s (the int8 trainer's median step, fwd+bwd+sync+AdamW: "
-          f"{trained['result']['median_step_s']:.3f} s); t_back {tl.t_back:.3f} s; {len(ready)} "
+    step = (f" (the int8 trainer's median step, fwd+bwd+sync+AdamW: "
+            f"{trained['result']['median_step_s']:.3f} s)" if trained else "")
+    print(f"  t_batch {tl.t_batch:.3f} s{step}; t_back {tl.t_back:.3f} s; {len(ready)} "
           f"groups, {tl.total_bytes / 2 ** 30:.2f} GiB of f32 gradients; ready at "
           f"{', '.join(f'{r:.4f}' for r in ready)} s; launches {counts}")
     check(math.isfinite(tl.t_batch) and tl.t_batch > 0, "t_batch not a positive time")
@@ -816,6 +842,7 @@ def phase_timeline(trained: dict) -> None:
     check(counts["flash_attention"] > 0, "timeline.measure did not run the flash kernel")
     gc.collect()
     torch.cuda.empty_cache()
+    return tl, counts
 
 
 # ---------------------------------------------------------------------------
@@ -1204,6 +1231,79 @@ def phase_cnn_whatif(measured: dict) -> None:
         print(f"    {sched:<10}" + "".join(f"  {bw:>3} Gbps {f:.4f}" for bw, f in row.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the experiment engine and the H100 what-if of the measured trainer
+# ---------------------------------------------------------------------------
+
+# the eight suites CI gates, with the golden each is compared with
+GOLDEN_SUITES = {"paper": "paper_suite.json", "scheduler": "scheduler_suite.json",
+                 "scenario": "scenario_suite.json", "compression": "compression_suite.json",
+                 "churn": "churn_suite.json", "fabric": "fabric_suite.json",
+                 "wan": "wan_suite.json", "xxl": "xxl_contention_suite.json"}
+
+
+def run_engine(argv: list) -> tuple:
+    """``python -m repro_torch.experiments ARGV`` in a process of its own (the
+    engine's process pool must not fork this one, which holds a CUDA
+    context): (completed process, wall seconds)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO / "src"), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.experiments", *argv], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    return proc, time.perf_counter() - t0
+
+
+def phase_engine(tl: timeline.GradTimeline, tl_counts: dict, measured_add: AddEst) -> None:
+    print("[21] the experiment engine as a user runs it: python -m repro_torch.experiments run "
+          "--grid G (to its default, artifacts/experiments/G.json), then compare against "
+          "artifacts/golden/ (1e-9), a process each")
+    for grid, golden in GOLDEN_SUITES.items():
+        out = REPO / "artifacts" / "experiments" / f"{grid}.json"
+        run, t_run = run_engine(["run", "--grid", grid])
+        check(run.returncode == 0, f"experiments run --grid {grid} exited {run.returncode}:\n"
+              f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+        cmp, t_cmp = run_engine(["compare", str(REPO / "artifacts" / "golden" / golden), str(out)])
+        check(cmp.returncode == 0, f"experiments compare {golden} exited {cmp.returncode}:\n"
+              f"{cmp.stdout[-3000:]}{cmp.stderr[-2000:]}")
+        print(f"  {grid:<12} run {t_run:6.2f} s, compare {t_cmp:6.2f} s (wall, with the interpreter's "
+              f"start): {cmp.stdout.strip().splitlines()[0]}")
+
+    # the what-if of the measured trainer: phase 16's stablelm-3b fwd+bwd at
+    # full width and depth, S = 4096, batch 1 (one replica's step)
+    cfg = get_config("stablelm-3b")
+    shape = InputShape("train_4k", INPUT_SHAPES["train_4k"].seq_len, 1, "train")
+    fwd = flops.total_fwd_flops(cfg, shape)
+    mfu = 3.0 * fwd / (tl.t_batch * BF16_FLOPS)
+    mfu_6nd = flops.model_flops(cfg, shape) / (tl.t_batch * BF16_FLOPS)
+    print(f"  stablelm-3b fwd+bwd measured in phase 16 (flash launches {tl_counts['flash_attention']}): "
+          f"t_batch {tl.t_batch:.4f} s; 3 x forward FLOPs {3.0 * fwd:.4e} -> MFU {mfu:.4f} of "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s; 6 N D {flops.model_flops(cfg, shape):.4e} "
+          f"-> MFU {mfu_6nd:.4f}")
+    check(math.isfinite(mfu) and 0.0 < mfu < 1.0, f"measured MFU {mfu} not in (0, 1)")
+    modelled = timeline.from_transformer(cfg, shape, mfu=mfu)
+    check(abs(modelled.t_batch - tl.t_batch) <= 1e-9 * tl.t_batch,
+          "from_transformer at the measured MFU does not reproduce the measured t_batch")
+    print("  h100_whatif(stablelm-3b, S = 4096, batch 1 a GPU; NVLink 3600 Gbps in a node of 8, "
+          "InfiniBand a GPU across nodes; ideal transport): scaling factor (t_sync ms)")
+    for add_label, add in (("AddEst.h100()", AddEst.h100()), ("AddEst.measure", measured_add)):
+        for m_label, m in (("0.4", 0.4), ("measured", mfu)):
+            for ib in (100.0, 400.0):
+                for ratio in (1.0, 4.0):
+                    res = {n: h100_whatif(cfg, shape, n_gpus=n, ib_gbps=ib, mfu=m,
+                                          compression_ratio=ratio, addest=add)
+                           for n in (8, 64, 256)}
+                    for n, r in res.items():
+                        check(0.0 < r.scaling_factor <= 1.0,
+                              f"scaling factor {r.scaling_factor} at {n} GPUs not in (0, 1]")
+                    check(res[256].scaling_factor <= res[64].scaling_factor + 1e-12,
+                          f"256 GPUs better than 64 ({add_label}, mfu {m}, IB {ib}, {ratio}x)")
+                    print(f"    {add_label:<14} mfu {m_label:<8} IB {ib:3.0f} Gbps "
+                          f"{'int8 4x' if ratio == 4.0 else 'none   '}:" + "".join(
+                              f"  {n:>3} GPUs {r.scaling_factor:.4f} ({r.t_sync * 1e3:8.3f})"
+                              for n, r in res.items()))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32, help="depth of the int8 trainer run")
@@ -1238,10 +1338,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     rows.append(phase_probe(R_main))
     calib_counts = phase_calibration(R_main * 256)
-    phase_addest()
+    measured_add = phase_addest()
     phase_grad_sync()
     trained = phase_trainer(args.layers)
-    phase_timeline(trained)
+    tl, tl_counts = phase_timeline(trained)
     ternary_counts = phase_ternary(args.ternary_layers)
     phase_serve("7", "stablelm-3b", {"flash_attention": get_config("stablelm-3b").num_layers},
                 [{"attn_chunk": 512}])
@@ -1273,6 +1373,7 @@ def main() -> None:
     measured = phase_cnn_step()
     phase_cnn_trainer()
     phase_cnn_whatif(measured)
+    phase_engine(tl, tl_counts, measured_add)
 
     # each kernel's launches on the path that runs it: ternarize on the
     # ternary trainer run, topk_mask on the topk run, wkv on rwkv6 serving,
@@ -1284,7 +1385,7 @@ def main() -> None:
         row["launches"] = paths.get(row["name"], trained["counts"])[row["name"]]
         check(row["launches"] > 0, f"{row['name']} was never launched on its path")
     check(len(rows) == 9, f"expected a row for each of the nine TPU kernels, got {len(rows)}")
-    print(f"[21] total {time.time() - t_start:.0f} s")
+    print(f"[22] total {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,7 +20,6 @@ from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 import numpy as np
-import torch
 
 V100_MEM_BW = 900e9
 V100_LAUNCH_OVERHEAD = 5e-6      # CUDA kernel launch latency
@@ -84,6 +83,8 @@ class AddEst:
         flush also keeps the stream busy while the host enqueues the add, so
         the host's launch time is not in the reading.  On the CPU the host
         clock times each add."""
+        import torch
+
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("AddEst.measure: no CUDA device (pass device='cpu')")

@@ -8,10 +8,11 @@ Ported here:
 - ``from_cnn``: the paper's three workloads, from their analytic profiles
   (``core.cnn_profiles``) and a batch time, the V100's by default or one
   measured on this card;
+- ``from_transformer``: any ported architecture x input shape, from the
+  per-layer parameter/FLOP model in ``core.flops`` at an assumed MFU of the
+  H100's dense bf16 rate (the reference assumes a TPU's);
 - ``measure``: time fwd+bwd on the params' device and spread the backward
   over the top-level parameter groups by FLOP share, as the reference does.
-
-``from_transformer`` needs the analytic FLOP model, which is not ported yet.
 """
 from __future__ import annotations
 
@@ -20,7 +21,6 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.core.cnn_profiles import CNNProfile, get_profile
 
@@ -80,6 +80,34 @@ def from_cnn(name: str, t_batch: Optional[float] = None,
     return from_layer_profile(prof.name, layer_bytes, bwd_times, tb)
 
 
+# NVIDIA H100 SXM data sheet: 989 TFLOP/s of dense bf16 on the tensor cores
+# (1,979 with 2:4 sparsity), the peak every operations bound in PERF.md uses.
+H100_BF16_FLOPS = 989e12
+
+
+def from_transformer(cfg, shape, *, mfu: float = 0.4,
+                     chip_flops: float = H100_BF16_FLOPS,
+                     n_chips_compute: int = 1,
+                     grad_dtype_bytes: int = 2) -> GradTimeline:
+    """Timeline for a ported architecture on an H100 at ``mfu`` of its dense
+    bf16 rate.
+
+    ``n_chips_compute`` divides the per-layer compute time (model-parallel
+    group size); gradient sizes are the *per-replica* gradient bytes.
+    """
+    from repro_torch.core.flops import layer_breakdown
+
+    layers = layer_breakdown(cfg, shape)     # [(name, params, fwd_flops)]
+    eff = mfu * chip_flops * n_chips_compute
+    fwd_times = np.array([l[2] for l in layers], dtype=np.float64) / eff
+    t_fwd = fwd_times.sum()
+    bwd_times = 2.0 * fwd_times
+    t_batch = float(t_fwd + bwd_times.sum())
+    layer_bytes = [l[1] * grad_dtype_bytes for l in layers]
+    return from_layer_profile(f"{cfg.name}:{shape.name}", layer_bytes,
+                              bwd_times, t_batch)
+
+
 def measure(api, cfg, batch, repeats: int = 3, *, params=None,
             device="cuda") -> GradTimeline:
     """Measured timeline: the mean time of ``repeats`` fwd+bwd passes of
@@ -91,6 +119,8 @@ def measure(api, cfg, batch, repeats: int = 3, *, params=None,
     a synchronize on CUDA).  Like the reference, this times the whole pass
     and spreads it; per-parameter gradient hooks would log real ready times
     and are beyond the reference."""
+    import torch
+
     from repro_torch.core.flops import layer_breakdown_from_params
     from repro_torch.utils.tree import tree_leaves, value_and_grad
 

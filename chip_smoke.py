@@ -48,7 +48,18 @@ through their entry points:
   ``core.whatif.h100_whatif`` prices the stablelm-3b fwd+bwd measured above
   on 8, 64 and 256 H100s, at an assumed MFU of 0.4 and at the MFU the
   measurement reaches, with the add model of the data sheet and the one
-  ``AddEst.measure`` took on the card.
+  ``AddEst.measure`` took on the card;
+- last, the trainer across processes: ``launch.train.main`` under the
+  environment torchrun gives rank 0 of a world of one, so that it runs over
+  an NCCL process group, held to phase 4's losses and launch counts;
+  ``sync_grads`` of a full-width stablelm-3b gradient tree, none and int8,
+  and the NCCL gather of the largest bucket's codes against its copy bound,
+  each in the NCCL world and in the in-process world of one; then ``python
+  -m torch.distributed.run --standalone --nproc_per_node <device count> -m
+  repro_torch.launch.train`` at 2 layers with ``--ckpt-dir``, its step-2
+  checkpoint restored on the card through ``checkpoint.store`` and a save ->
+  restore round trip of that state checked bit for bit.  One card runs an
+  NCCL world of one rank: nothing there is wire time.
 
 Launch counters, reset right before each run and read right after, show
 that the run went through the kernels.
@@ -60,11 +71,14 @@ lines are not printed.  Without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
 import math
 import os
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -77,6 +91,7 @@ from pathlib import Path
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
@@ -87,6 +102,7 @@ sys.path.insert(0, str(REPO / "src"))
 import torch.nn.functional as F  # noqa: E402
 
 from examples import torch_measured_whatif as whatif  # noqa: E402
+from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import INPUT_SHAPES, CommConfig, InputShape, get_config  # noqa: E402
 from repro_torch.core import flops, timeline  # noqa: E402
 from repro_torch.core.addest import H100_LAUNCH_OVERHEAD, AddEst  # noqa: E402
@@ -105,11 +121,11 @@ from repro_torch.models import mamba as mb  # noqa: E402
 from repro_torch.models.cnn import CNN_NAMES, CNNConfig, cnn_api  # noqa: E402
 from repro_torch.models.jamba import block_layout as jamba_layout  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
-from repro_torch.parallel.collectives import InProcessWorld  # noqa: E402
+from repro_torch.parallel.collectives import DistributedWorld, InProcessWorld  # noqa: E402
 from repro_torch.optim.optimizers import get_optimizer  # noqa: E402
 from repro_torch.optim.schedule import get_schedule  # noqa: E402
 from repro_torch.parallel.grad_sync import make_plan, sync_grads, sync_grads_per_rank  # noqa: E402
-from repro_torch.utils.tree import value_and_grad  # noqa: E402
+from repro_torch.utils.tree import tree_leaves, tree_map, value_and_grad  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -1304,6 +1320,184 @@ def phase_engine(tl: timeline.GradTimeline, tl_counts: dict, measured_add: AddEs
                               for n, r in res.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the trainer over torch.distributed (NCCL), the grad sync against
+# the in-process world, torchrun as a user starts it, and checkpoints
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def rank_env():
+    """The environment torchrun gives the one rank of a world of one (one
+    process holds one rank), restored after."""
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_nccl_trainer(layers: int, phase4: dict) -> None:
+    steps = 5
+    t_phase = time.perf_counter()
+    print(f"[22a] the int8 trainer of phase 4 over NCCL, in this process: RANK 0 of WORLD_SIZE 1, "
+          f"{layers} layers, {steps} steps")
+    with rank_env():
+        result, counts = run_trainer(trainer_args("int8", steps, layers))
+    losses, ref = result["losses"], phase4["result"]["losses"]
+    check(result["world"] == 1 and result["backend"] == "nccl",
+          f"expected world 1 on nccl, got {result['world']} on {result['backend']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    print(f"  losses {losses}; phase 4 {ref}: largest rel diff {rel:.3e} (limit 1e-5), "
+          f"{'bitwise equal' if losses == ref else 'not bitwise equal'}")
+    check(rel <= 1e-5, "the NCCL trainer's losses differ from phase 4's")
+    codec = ("quantize_int8_2d", "dequantize_int8_2d", "fused_add_2d", "flash_attention")
+    print(f"  launches {counts}")
+    for name in codec:
+        check(counts[name] == phase4["counts"][name],
+              f"{name}: {counts[name]} launches over NCCL, {phase4['counts'][name]} in phase 4")
+    check(counts["quantize_int8_2d"] == phase4["buckets"] * steps, "one encode per bucket and step")
+    r4 = phase4["result"]
+    print(f"  median step {result['median_step_s']:.4f} s, {result['tokens_per_s']:.1f} tokens/s "
+          f"(phase 4, in-process: {r4['median_step_s']:.4f} s, {r4['tokens_per_s']:.1f} tokens/s); "
+          f"peak memory {result['peak_gib']:.1f} GiB; phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_nccl_turns(layers: int = 32, steps: int = 5) -> None:
+    """Not part of the run: the int8 trainer in process and over NCCL in
+    turns (in-process, NCCL, NCCL, in-process) in one call, the comparison
+    that tells a difference from the spread between calls."""
+    print(f"[22t] the int8 trainer, {layers} layers, {steps} steps, in turns: in-process, NCCL, "
+          f"NCCL, in-process")
+    for label in ("in-process", "nccl", "nccl", "in-process"):
+        with rank_env() if label == "nccl" else contextlib.nullcontext():
+            result, _ = run_trainer(trainer_args("int8", steps, layers))
+        print(f"  {label:<10}: median step {result['median_step_s']:.4f} s "
+              f"({result['tokens_per_s']:.1f} tokens/s), {result['backend']}")
+
+
+def phase_nccl_sync() -> None:
+    t_phase = time.perf_counter()
+    cfg = get_config("stablelm-3b")
+    shapes = get_model(cfg).init(None, device="meta")
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen, device=DEV, dtype=p.dtype),
+                     shapes)
+    plan, _ = make_plan(grads, 64.0)
+    largest = max(plan.bucket_sizes)
+    print(f"[22b] sync_grads alone: stablelm-3b full width, random bf16 gradients, {plan.n_buckets} "
+          f"buckets (largest {largest:,} f32 = {largest * 4 / 1e9:.2f} GB), in-process world of 1 "
+          f"against NCCL world of 1; CUDA events behind a stream spin, median of 5")
+    check(plan.n_buckets == 11 and largest == cfg.num_layers * cfg.d_model * cfg.d_ff,
+          "not phase 4's bucket plan")
+    with rank_env():
+        dist.init_process_group("nccl", device_id=DEV)
+        try:
+            worlds = {"in-process": InProcessWorld(1), "nccl": DistributedWorld()}
+            for compression in ("none", "int8"):
+                comm = CommConfig(mode="explicit", compression=compression)
+                for label, world in worlds.items():
+                    ms = time_device_ms(lambda: sync_grads(grads, world, comm), reps=5)
+                    print(f"  {compression:<4} {label:<10}: {ms:8.3f} ms a sync")
+            q, s_, n = ops.quantize_int8(torch.randn(largest, generator=gen, device=DEV))
+            nbytes = q.numel() * q.element_size() + s_.numel() * s_.element_size()
+            bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+            for label, world in worlds.items():
+                ms = time_device_ms(lambda: (world.all_gather([q]), world.all_gather([s_])), reps=5)
+                print(f"  all_gather of the largest bucket's int8 codes {q.numel() * q.element_size():,} B "
+                      f"+ scales {s_.numel() * s_.element_size():,} B, {label:<10}: {ms:.4f} ms "
+                      f"(copy bound {bound:.4f} ms: {nbytes:,} B read and written at 3.35 TB/s)")
+            got = worlds["nccl"].all_gather([q])[0]
+            check(torch.equal(got[0], q), "the NCCL gather of one rank is not a copy")
+        finally:
+            dist.destroy_process_group()
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_torchrun_checkpoint() -> None:
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    layers, steps = 2, 3
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    argv = ["--arch", "stablelm-3b", "--shape", "train_4k", "--batch", str(n), "--layers",
+            str(layers), "--steps", str(steps), "--comm-mode", "explicit", "--compression", "int8",
+            "--ckpt-dir", str(tmp / "run"), "--ckpt-every", "2", "--log-every", "1"]
+    print(f"[22c] python -m torch.distributed.run --standalone --nproc_per_node {n} "
+          f"-m repro_torch.launch.train {' '.join(argv)}")
+    try:
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE",
+                            "MASTER_ADDR", "MASTER_PORT")}
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO / "src"), env.get("PYTHONPATH")) if p)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", str(n), "-m", "repro_torch.launch.train", *argv],
+                              cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+        print("  " + "\n  ".join(l for l in proc.stdout.strip().splitlines() if l.startswith(("[train]", "  step"))))
+        check(proc.returncode == 0, f"torchrun exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+              f"{proc.stderr[-3000:]}")
+        print(f"  exit 0 in {time.perf_counter() - t0:.1f} s (wall, {n} process(es) and the launcher)")
+
+        cfg = get_config("stablelm-3b").replace(num_layers=layers)
+        params = get_model(cfg).init(torch.Generator(device=DEV).manual_seed(1))
+        template = {"params": params, "opt": get_optimizer("adamw").init(params)}
+        manifest = json.loads((tmp / "run" / "step_00000002" / "manifest.json").read_text())
+        check(store.latest_step(tmp / "run") == 2, "torchrun wrote no step 2")
+        t0 = time.perf_counter()
+        state = store.restore(tmp / "run", template, step=2)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        leaves = tree_leaves(state)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        check(list(manifest["leaves"]) == store.leaf_names(template), "leaf names differ")
+        for (name, ent), t in zip(manifest["leaves"].items(), leaves):
+            dtype = str(t.dtype).replace("torch.", "")
+            check(ent["shape"] == list(t.shape) and ent["dtype"] == dtype and t.device == DEV,
+                  f"{name}: manifest {ent} against {tuple(t.shape)} {dtype} on {t.device}")
+        check(int(state["opt"].count) == 3, "step 2's checkpoint holds no count of 3")
+        print(f"  restored step_00000002 ({len(leaves)} leaves, {nbytes / 1e9:.3f} GB) into a "
+              f"{layers}-layer template on the card in {t_restore:.2f} s; names, shapes, dtypes "
+              f"as the manifest")
+        shutil.rmtree(tmp / "run")
+
+        t0 = time.perf_counter()
+        store.save(tmp / "trip", state, 7)
+        t_save = time.perf_counter() - t0
+        blank = tree_map(torch.zeros_like, state)
+        t0 = time.perf_counter()
+        back = store.restore(tmp / "trip", blank)
+        torch.cuda.synchronize()
+        t_back = time.perf_counter() - t0
+        for a, b in zip(tree_leaves(back), leaves):
+            check(a.dtype == b.dtype and torch.equal(_bits(a) if a.is_floating_point() else a,
+                                                     _bits(b) if b.is_floating_point() else b),
+                  "a leaf did not come back bit for bit")
+        print(f"  round trip of that live state: save {t_save:.2f} s, restore {t_back:.2f} s "
+              f"({nbytes / 1e9:.3f} GB; host-bound), bit for bit; phase wall "
+              f"{time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32, help="depth of the int8 trainer run")
@@ -1374,6 +1568,10 @@ def main() -> None:
     phase_cnn_trainer()
     phase_cnn_whatif(measured)
     phase_engine(tl, tl_counts, measured_add)
+    # last: no process pool may fork a parent that holds a process group
+    phase_nccl_trainer(args.layers, trained)
+    phase_nccl_sync()
+    phase_torchrun_checkpoint()
 
     # each kernel's launches on the path that runs it: ternarize on the
     # ternary trainer run, topk_mask on the topk run, wkv on rwkv6 serving,
@@ -1385,7 +1583,7 @@ def main() -> None:
         row["launches"] = paths.get(row["name"], trained["counts"])[row["name"]]
         check(row["launches"] > 0, f"{row['name']} was never launched on its path")
     check(len(rows) == 9, f"expected a row for each of the nine TPU kernels, got {len(rows)}")
-    print(f"[22] total {time.time() - t_start:.0f} s")
+    print(f"[23] total {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

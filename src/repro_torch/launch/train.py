@@ -1,21 +1,31 @@
 """Training launcher.
 
-Runs training of a ported architecture on one GPU with the paper's
-communication phase as a configurable feature:
+Runs training of a ported architecture, on one GPU or on many, with the
+paper's communication phase as a configurable feature:
 
-- ``--comm-mode auto``      no explicit gradient sync (one device: nothing
-                            to average)
+- ``--comm-mode auto``      gradient averaging by a per-leaf all-reduce
+                            (``grad_sync.allreduce_mean_leaves``), the
+                            counterpart of XLA's SPMD psum; nothing to
+                            average on one rank
 - ``--comm-mode explicit``  bucketed hierarchical grad-sync
                             (``repro_torch.parallel.grad_sync``) with
                             optional compression, the paper-faithful
                             Horovod-style communication phase; on one
-                            device it runs over a world of one rank, so
-                            encode -> gather -> dequantize -> fused add
-                            still execute
+                            rank it still runs encode -> gather ->
+                            dequantize -> fused add
 
 and the paper's *measurement methodology* built in: per-step wall time
 (host clock around a step that ends in a device synchronise), median step
-time and tokens/s printed at the end.
+time and tokens/s of the whole world printed at the end.
+
+Started by ``torchrun`` (``WORLD_SIZE`` in the environment) it runs one
+rank a process over ``torch.distributed``: NCCL on ``--device cuda`` (rank
+``r`` on ``cuda:LOCAL_RANK``), gloo on ``--device cpu``.  Parameters are
+broadcast from rank 0; each rank trains on its rows of the global batch
+when the world size divides it (the JAX train-step spec's
+``data_batch_spec``), on all of it otherwise; the loss reported is the
+global batch's; only rank 0 prints, and rank 0 writes ``--ckpt-dir``.
+Otherwise it runs an in-process world of one rank.
 
 The launcher runs on ``--device cuda`` (the default) and raises when CUDA
 is not available; it never carries on on the CPU by itself.  Two flags
@@ -28,24 +38,31 @@ Examples:
       --shape train_4k --batch 1 --steps 5 --comm-mode explicit --compression int8
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b --smoke \
       --steps 20 --comm-mode explicit --compression int8 --device cpu
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 4 \
+      -m repro_torch.launch.train --smoke --batch 4 --steps 3 --device cpu \
+      --comm-mode explicit --compression int8 --ckpt-dir /tmp/ckpt --ckpt-every 2
 """
 from __future__ import annotations
 
 import argparse
+import itertools
+import os
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import save
 from repro_torch.configs import CommConfig, INPUT_SHAPES, InputShape, get_config
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM, device_put_batch
 from repro_torch.models.layers import count_params
 from repro_torch.models.registry import get_model
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.optim.schedule import clip_by_global_norm, get_schedule
-from repro_torch.parallel.collectives import InProcessWorld
-from repro_torch.parallel.grad_sync import make_plan, sync_grads
-from repro_torch.utils.tree import value_and_grad
+from repro_torch.parallel.collectives import DistributedWorld, InProcessWorld, World
+from repro_torch.parallel.grad_sync import allreduce_mean_leaves, make_plan, sync_grads
+from repro_torch.parallel.sharding import batch_shardable, shard_batch
+from repro_torch.utils.tree import tree_leaves, value_and_grad
 
 
 def resolve_device(name: str) -> torch.device:
@@ -57,7 +74,36 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def make_train_step(api, opt, world: InProcessWorld, comm: CommConfig, lr_fn,
+_WORLDS_BUILT = itertools.count()      # process groups this process has made
+
+
+def build_world(device: torch.device) -> tuple:
+    """The counterpart of the JAX launcher's ``build_mesh``: (world, device).
+
+    Under ``torchrun`` (``WORLD_SIZE`` set) this initialises the default
+    process group, NCCL for a CUDA device (bound to ``cuda:LOCAL_RANK``
+    first) or gloo for the CPU, and returns this rank's
+    ``DistributedWorld``; the caller destroys the group.  Otherwise an
+    in-process world of one rank."""
+    if "WORLD_SIZE" not in os.environ:
+        return InProcessWorld(1), device
+    import torch.distributed as dist
+
+    # torchrun's store outlives a process group: a second group of this
+    # process under the first one's keys would read its stale addresses
+    store, rank, size = next(dist.rendezvous("env://"))
+    store = dist.PrefixStore(f"repro_torch.world{next(_WORLDS_BUILT)}", store)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", store=store, rank=rank, world_size=size,
+                                device_id=device)
+    else:
+        dist.init_process_group("gloo", store=store, rank=rank, world_size=size)
+    return DistributedWorld(), device
+
+
+def make_train_step(api, opt, world: World, comm: CommConfig, lr_fn,
                     clip_norm: float = 0.0):
     use_kernels = api.cfg.use_pallas != "never"
 
@@ -65,6 +111,8 @@ def make_train_step(api, opt, world: InProcessWorld, comm: CommConfig, lr_fn,
         (loss, metrics), grads = value_and_grad(api.loss_fn, params, batch)
         if comm.mode == "explicit":
             grads = sync_grads(grads, world, comm, use_kernels=use_kernels)
+        elif world.size > 1:
+            grads = allreduce_mean_leaves(grads, world)
         gnorm = torch.zeros((), device=loss.device)
         if clip_norm > 0:
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
@@ -127,25 +175,37 @@ def dryrun(args) -> dict:
 def run(args) -> dict:
     if args.dryrun:
         return dryrun(args)
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpointing is not ported yet")
     device = resolve_device(args.device)
     cfg = config_from_args(args)
     shape = INPUT_SHAPES[args.shape].smoke() if args.smoke else INPUT_SHAPES[args.shape]
     if args.batch:
         shape = InputShape(shape.name, shape.seq_len, args.batch, shape.kind)
+    world, device = build_world(device)
+    try:
+        return _train(args, cfg, shape, world, device)
+    finally:
+        if isinstance(world, DistributedWorld):
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
+
+def _train(args, cfg, shape: InputShape, world: World, device: torch.device) -> dict:
+    log = print if world.rank == 0 else (lambda *a, **k: None)
     comm = comm_from_args(args)
-    world = InProcessWorld(1)
     api = get_model(cfg)
     opt = get_optimizer(args.optimizer)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = api.init(gen)
+    if world.size > 1:
+        world.broadcast_(tree_leaves(params))           # equal on every rank, as DDP makes them
     opt_state = opt.init(params)
     n_params = count_params(params)
-    print(f"[train] {cfg.name} | {n_params/1e6:.1f}M params | {cfg.num_layers} layers | "
-          f"device {device} | world {world.size} | comm={comm.mode}/{comm.compression}")
+    sharded = world.size > 1 and batch_shardable(world, shape.global_batch) is not None
+    rows = shape.global_batch // world.size if sharded else shape.global_batch
+    log(f"[train] {cfg.name} | {n_params/1e6:.1f}M params | {cfg.num_layers} layers | "
+        f"device {device} | world {world.size} ({world.backend}), {rows} of "
+        f"{shape.global_batch} rows a rank | comm={comm.mode}/{comm.compression}")
 
     data = SyntheticLM(cfg, shape, seed=args.seed)
     it = Prefetcher(iter(data), depth=2)
@@ -156,7 +216,7 @@ def run(args) -> dict:
     t_first = None
     try:
         for step in range(args.steps):
-            batch = device_put_batch(next(it), device)
+            batch = device_put_batch(shard_batch(next(it), world), device)
             t0 = time.perf_counter()
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             if device.type == "cuda":
@@ -166,10 +226,18 @@ def run(args) -> dict:
                 t_first = dt
             else:
                 times.append(dt)
-            losses.append(float(metrics["loss"]))
+            loss = metrics["loss"]
+            if sharded:                                   # the global batch's mean
+                loss = world.all_reduce_sum([loss])[0] / world.size
+            losses.append(float(loss))
             if step % args.log_every == 0:
-                print(f"  step {step:4d} loss {losses[-1]:.4f} "
-                      f"({dt*1e3:.0f} ms)")
+                log(f"  step {step:4d} loss {losses[-1]:.4f} "
+                    f"({dt*1e3:.0f} ms)")
+            if args.ckpt_dir and step and step % args.ckpt_every == 0:
+                if world.rank == 0:
+                    save(args.ckpt_dir, {"params": params, "opt": opt_state}, step)
+                if world.size > 1:
+                    world.barrier()
     finally:
         it.close()
 
@@ -183,10 +251,11 @@ def run(args) -> dict:
         "tokens_per_s": tokens_per_step / t_step if times else 0.0,
         "loss_decreased": losses[-1] < losses[0],
         "losses": losses, "device": str(device), "num_layers": cfg.num_layers,
+        "world": world.size, "backend": world.backend,
     }
-    print(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
-          f"{result['tokens_per_s']:.0f} tok/s "
-          f"(median {t_step*1e3:.0f} ms/step)")
+    log(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"{result['tokens_per_s']:.0f} tok/s "
+        f"(median {t_step*1e3:.0f} ms/step)")
     return result
 
 

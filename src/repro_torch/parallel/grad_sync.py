@@ -19,9 +19,16 @@ utilization) reaches a ~100 % scaling factor.  The levers at this layer:
   hops).
 
 Collectives go through the small interface of
-``repro_torch.parallel.collectives``.  Buckets are issued strictly in
-``plan.comm_plan(comm).bucket_order()``, one at a time on the current
-stream: one collective in flight, in the order the simulator prices.
+``repro_torch.parallel.collectives``: the in-process world, or one rank of
+a ``torch.distributed`` group a process (NCCL on ``--device cuda``, gloo
+on ``--device cpu``), which is how K > 1 runs::
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \\
+        -m repro_torch.launch.train --comm-mode explicit --compression int8 ...
+
+Buckets are issued strictly in ``plan.comm_plan(comm).bucket_order()``, one
+at a time on the current stream: one collective in flight, in the order the
+simulator prices.
 Unlike the JAX package, which packs all buckets before the first
 collective, a bucket is packed right before it is synced and unpacked right
 after, so only one f32 bucket and its encoded copies are alive at a time;
@@ -37,7 +44,7 @@ import torch
 from repro_torch.configs.base import CommConfig
 from repro_torch.core.schedule import lower_buckets
 from repro_torch.kernels import ops as kops
-from repro_torch.parallel.collectives import InProcessWorld, PerRank
+from repro_torch.parallel.collectives import PerRank, World
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 
@@ -139,11 +146,11 @@ def unpack(plan: BucketPlan, buckets: Sequence[torch.Tensor]) -> List[torch.Tens
 # per-bucket collectives; xs holds one tensor per rank of the world
 # ---------------------------------------------------------------------------
 
-def _allreduce_mean(xs: PerRank, world: InProcessWorld) -> PerRank:
+def _allreduce_mean(xs: PerRank, world: World) -> PerRank:
     return [t / world.size for t in world.all_reduce_sum(xs, "world")]
 
 
-def _hierarchical_mean(xs: PerRank, world: InProcessWorld) -> PerRank:
+def _hierarchical_mean(xs: PerRank, world: World) -> PerRank:
     """In-node reduce-scatter -> cross-node all-reduce -> in-node all-gather."""
     nd = world.node_size
     n = xs[0].shape[0]
@@ -157,7 +164,7 @@ def _hierarchical_mean(xs: PerRank, world: InProcessWorld) -> PerRank:
     return [(f[:n] if pad else f) / world.size for f in full]
 
 
-def _compressed_mean(xs: PerRank, comm: CommConfig, world: InProcessWorld,
+def _compressed_mean(xs: PerRank, comm: CommConfig, world: World,
                      use_kernels: bool = True) -> PerRank:
     """Horovod-compression semantics: all-gather compressed payloads, then
     dequantize and reduce locally with one fused K-way add."""
@@ -192,7 +199,7 @@ def _compressed_mean(xs: PerRank, comm: CommConfig, world: InProcessWorld,
     raise ValueError(comm.compression)
 
 
-def _sync_bucket(xs: PerRank, comm: CommConfig, world: InProcessWorld,
+def _sync_bucket(xs: PerRank, comm: CommConfig, world: World,
                  use_kernels: bool = True) -> PerRank:
     if comm.compression != "none":
         return _compressed_mean(xs, comm, world, use_kernels)
@@ -206,12 +213,12 @@ def _sync_bucket(xs: PerRank, comm: CommConfig, world: InProcessWorld,
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def sync_grads_per_rank(grads: Sequence[Any], world: InProcessWorld, comm: CommConfig,
+def sync_grads_per_rank(grads: Sequence[Any], world: World, comm: CommConfig,
                         use_kernels: bool = True) -> List[Any]:
     """``grads[r]`` is rank ``r``'s gradient tree; returns one synced tree
     per rank, each the mean over ranks.  See :func:`sync_grads`."""
-    if len(grads) != world.size:
-        raise ValueError(f"expected {world.size} gradient trees, got {len(grads)}")
+    if len(grads) != world.local_ranks:
+        raise ValueError(f"expected {world.local_ranks} gradient trees, got {len(grads)}")
     template = grads[0]
     plan, _ = make_plan(template, comm.fusion_buffer_mb)
     leaves = [tree_leaves(g) for g in grads]
@@ -226,10 +233,11 @@ def sync_grads_per_rank(grads: Sequence[Any], world: InProcessWorld, comm: CommC
     return [tree_unflatten(template, nl) for nl in new_leaves]
 
 
-def sync_grads(grads: Any, world: InProcessWorld, comm: CommConfig,
+def sync_grads(grads: Any, world: World, comm: CommConfig,
                use_kernels: bool = True) -> Any:
     """Average ``grads`` over the world's ranks, for a process that holds
-    one rank (``world.size == 1`` with the in-process world).
+    one rank (``world.local_ranks == 1``: a ``DistributedWorld``, or the
+    in-process world of one).
 
     Equivalent to a per-leaf mean over ranks, but bucketed (fusion
     buffers), hierarchical and optionally compressed: the paper's
@@ -239,10 +247,21 @@ def sync_grads(grads: Any, world: InProcessWorld, comm: CommConfig,
     ``use_kernels=False`` takes the plain versions of the codec kernels
     even on CUDA tensors (the reference path of a comparison run).
     """
-    if world.size != 1:
+    if world.local_ranks != 1:
         raise ValueError("sync_grads takes one rank's tree; use "
                          "sync_grads_per_rank for an in-process world of several ranks")
     return sync_grads_per_rank([grads], world, comm, use_kernels)[0]
+
+
+@torch.no_grad()
+def allreduce_mean_leaves(grads: Any, world: World) -> Any:
+    """``--comm-mode auto`` at K > 1: each leaf summed over the world in its
+    own dtype, then divided by K; the counterpart of the gradient psum that
+    XLA inserts under SPMD.  For a process that holds one rank."""
+    if world.local_ranks != 1:
+        raise ValueError("allreduce_mean_leaves takes one rank's tree")
+    return tree_unflatten(grads, [world.all_reduce_sum([g])[0] / world.size
+                                  for g in tree_leaves(grads)])
 
 
 def grad_sync_flops_and_bytes(total_bytes: int, n_workers: int,

@@ -170,11 +170,6 @@ def test_main_other_modes_run(flags):
     assert np.isfinite(out["last_loss"])
 
 
-def test_main_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        ttrain.main(["--smoke", "--steps", "1", "--device", "cpu", "--ckpt-dir", "x"])
-
-
 def test_comm_from_args_matches_jax():
     argv = ["--comm-mode", "explicit", "--compression", "int8", "--fusion-mb", "8",
             "--flat-allreduce", "--scheduler", "chunked", "--sched-chunks", "2"]

@@ -5,9 +5,10 @@
         [--batch 4] [--prompt-len 4096] [--gen 8] [--layers N]
     PYTHONPATH=src python benchmarks/torch_serve_profile.py --arch jamba-v0.1-52b --layers 8
 
-Runs the serving path of ``repro_torch.launch.serve`` (one prefill, then
-greedy decode steps against the cache) at full width, with random seed-0
-parameters, at full depth unless ``--layers`` cuts it (jamba-v0.1-52b
+Runs the serving path of ``repro_torch.launch.serve`` (one prefill of
+``serve.prompt_batch``'s prompts, a VLM's prefix embeddings and Whisper's
+frames with them, then greedy decode steps against the cache) at full
+width, with random seed-0 parameters, at full depth unless ``--layers`` cuts it (jamba-v0.1-52b
 takes a multiple of 8 and does not fit one card at its 32), and traces
 the prefill and ``--gen`` decode steps separately with
 ``torch.profiler``: wall time, device kernel time, the
@@ -28,9 +29,9 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
-from repro_torch.configs import InputShape, get_config  # noqa: E402
-from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.launch.serve import prompt_batch  # noqa: E402
 from repro_torch.models.registry import get_model, pad_cache  # noqa: E402
 
 
@@ -75,36 +76,36 @@ def main() -> None:
     api = get_model(cfg)
     B, P, G = args.batch, args.prompt_len, args.gen
     params = api.init(torch.Generator(device=device).manual_seed(0))
-    prompt = SyntheticLM(cfg, InputShape("prompt", P, B, "prefill"), seed=0).batch(0)["tokens"]
-    prompt = torch.from_numpy(prompt).to(device)
+    batch = prompt_batch(cfg, B, P, 0, device)             # with a VLM's prefix, Whisper's frames
+    n_cached = P + (cfg.prefix_embeds if cfg.family == "vlm" else 0)
 
     def sync() -> float:
         torch.cuda.synchronize(device)
         return time.perf_counter()
 
     with torch.inference_mode():
-        api.prefill(params, {"tokens": prompt[:, :256]})       # builds the kernels, warms up
+        api.prefill(params, {**batch, "tokens": batch["tokens"][:, :256]})   # builds, warms up
         build.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = sync()
-            logits, cache = api.prefill(params, {"tokens": prompt})
+            logits, cache = api.prefill(params, batch)
             t1 = sync()
         print(f"{cfg.name}, {cfg.num_layers} layers, batch {B}, prompt {P}; launches "
               f"{ {k: v for k, v in build.launch_counts.items() if v} }")
         report("prefill (traced)", prof, (t1 - t0) * 1e3, args.top)
 
-        cache = pad_cache(cache, P + G + 1)
+        cache = pad_cache(cache, n_cached + G + 1)
         tokens = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-        logits, cache = api.decode_step(params, {"tokens": tokens}, cache, P)   # warm-up step
+        logits, cache = api.decode_step(params, {"tokens": tokens}, cache, n_cached)   # warm-up
         t0 = sync()
         for i in range(G):
-            logits, cache = api.decode_step(params, {"tokens": tokens}, cache, P + 1 + i)
+            logits, cache = api.decode_step(params, {"tokens": tokens}, cache, n_cached + 1 + i)
         t1 = sync()
         print(f"decode, untraced: {(t1 - t0) / G * 1e3:.2f} ms a step")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = sync()
             for i in range(G):
-                logits, cache = api.decode_step(params, {"tokens": tokens}, cache, P + 1 + i)
+                logits, cache = api.decode_step(params, {"tokens": tokens}, cache, n_cached + 1 + i)
             t1 = sync()
         report(f"decode, {G} steps (traced)", prof, (t1 - t0) * 1e3, args.top)
 

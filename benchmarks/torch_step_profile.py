@@ -2,9 +2,10 @@
 """Where one training step of the PyTorch port spends its time on the GPU.
 
     PYTHONPATH=src python benchmarks/torch_step_profile.py [--layers 32] [--steps 3]
+    PYTHONPATH=src python benchmarks/torch_step_profile.py --arch moonshot-v1-16b-a3b --layers 4
 
-Runs the explicit-comm int8 training step of stablelm-3b (full width, bf16,
-S = 4096, batch 1) phase by phase, with a device synchronise after each
+Runs the explicit-comm int8 training step of ``--arch`` (stablelm-3b by
+default; full width, bf16, S = 4096, batch 1) phase by phase, with a device synchronise after each
 phase (forward+backward, gradient sync, clipping, AdamW), then traces two
 steps with ``torch.profiler`` and prints the kernels that take most device
 time and the device's idle share of the traced window.  Needs a CUDA
@@ -37,6 +38,7 @@ from repro_torch.utils.tree import value_and_grad  # noqa: E402
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="stablelm-3b")
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--compression", default="int8")
@@ -48,7 +50,7 @@ def main() -> None:
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    cfg = get_config("stablelm-3b").replace(num_layers=args.layers)
+    cfg = get_config(args.arch).replace(num_layers=args.layers)
     shape = InputShape("train_4k", INPUT_SHAPES["train_4k"].seq_len, 1, "train")
     comm = CommConfig(mode="explicit", compression=args.compression)
     world = InProcessWorld(1)
@@ -79,7 +81,7 @@ def main() -> None:
             for name, dt in zip(phases, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t4 - t0)):
                 phases[name].append(dt * 1e3)
     print(f"phases, median of {args.steps} steps after one warm-up step "
-          f"({args.layers} layers, S=4096, batch 1, {args.compression}), ms:")
+          f"({cfg.name}, {args.layers} layers, S=4096, batch 1, {args.compression}), ms:")
     for name, xs in phases.items():
         print(f"  {name:10s} {statistics.median(xs):9.1f}")
 

@@ -59,7 +59,18 @@ through their entry points:
   repro_torch.launch.train`` at 2 layers with ``--ckpt-dir``, its step-2
   checkpoint restored on the card through ``checkpoint.store`` and a save ->
   restore round trip of that state checked bit for bit.  One card runs an
-  NCCL world of one rank: nothing there is wire time.
+  NCCL world of one rank: nothing there is wire time;
+- then the other model families (phases 24-30): ``launch.train.main`` on
+  moonshot-v1-16b-a3b (MoE, full width, 1 dense + 3 MoE layers, int8)
+  against a plain run, its ``sync_grads`` time and gradient bytes beside
+  stablelm-3b's; and ``launch.serve.main`` at full width on moonshot-v1-16b-a3b
+  and command-r-35b, deepseek-coder-33b, internvl2-2b (256 prefix embeddings
+  ahead of the prompt) and whisper-base (1500 frames, prompt 384) at full
+  depth, deepseek-v2-236b (MLA; 4 layers, no kernel on its path, so kernel
+  and plain runs agree bit for bit) and arctic-480b (2 layers) cut in depth,
+  each held against the plain path's own spread and under 75 GiB of peak
+  memory.  The flash kernel is held to its plain version at those decoders'
+  head layouts in phase 2c.
 
 Launch counters, reset right before each run and read right after, show
 that the run went through the kernels.
@@ -318,15 +329,24 @@ def flash_shape(label: str, B: int, H: int, KV: int, S: int, hd: int, seed: int)
     beside its bound."""
     q, k, v = flash_case(B * H, S, hd, torch.bfloat16, True, H, KV, seed=seed)
     out = fl.flash_attention_cuda(q, k, v, causal=True, n_heads=H, n_kv_heads=KV)
-    ref = fl.flash_attention_plain(q, k, v, causal=True, n_heads=H, n_kv_heads=KV)
+    # the plain version holds its (B·H, S, S) f32 scores three times over:
+    # above 8 GiB of them it runs one batch row a call
+    rows = 1 if B * H * S * S * 4 > 8 * 2 ** 30 else B
+
+    def plain():
+        return torch.cat([fl.flash_attention_plain(q[b * H:(b + rows) * H], k[b * KV:(b + rows) * KV],
+                                                   v[b * KV:(b + rows) * KV], causal=True,
+                                                   n_heads=H, n_kv_heads=KV)
+                          for b in range(0, B, rows)])
+
+    ref = plain()
     check(bool(torch.isfinite(out).all()), f"flash output not finite at {label}")
     torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
     err = float((out.float() - ref.float()).abs().max())
     del out, ref
     torch.cuda.empty_cache()
     ms = time_device_ms(lambda: fl.flash_attention_cuda(q, k, v, causal=True, n_heads=H, n_kv_heads=KV))
-    plain_ms = time_ms(lambda: fl.flash_attention_plain(q, k, v, causal=True, n_heads=H, n_kv_heads=KV),
-                       reps=3, warmup=1)
+    plain_ms = time_ms(plain, reps=3, warmup=1)
     q4, k4, v4 = q.reshape(B, H, S, hd), k.reshape(B, KV, S, hd), v.reshape(B, KV, S, hd)
     lib = time_device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                                                 enable_gqa=KV != H))
@@ -334,7 +354,8 @@ def flash_shape(label: str, B: int, H: int, KV: int, S: int, hd: int, seed: int)
     nbytes = 2 * S * hd * (2 * B * H + 2 * B * KV)        # q and o; k and v, bf16
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     print(f"  ({B * H},{S},{hd}) bf16 causal Hq={H} Hkv={KV} ({label}): err {err:.3e}, kernel "
-          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms"
+          f"{'' if rows == B else f' ({B} calls of one batch row)'}, "
           f"scaled_dot_product_attention {lib:.4f} ms ({ms / lib:.2f}x), bound "
           f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})")
     if hd == 80:
@@ -397,6 +418,12 @@ def phase_flash() -> dict:
     row = flash_shape("stablelm-3b trainer", 1, 32, 32, 4096, 80, seed=999)
     flash_shape("stablelm-3b serving prefill", SERVE_B, 32, 32, SERVE_P, 80, seed=777)
     flash_shape("jamba-v0.1-52b serving prefill", SERVE_B, 32, 8, SERVE_P, 128, seed=1234)
+    # the decoders served in phases 25, 28 and 29 at their prefills: G = Hq / Hkv of 1, 2, 8, 7
+    flash_shape("moonshot-v1-16b-a3b serving prefill", SERVE_B, 16, 16, SERVE_P, 128, seed=1301)
+    flash_shape("internvl2-2b serving prefill, 256 prefix + 4096", SERVE_B, 16, 8,
+                VLM_PREFIX + SERVE_P, 128, seed=1302)
+    flash_shape("command-r-35b serving prefill", SERVE_B, 64, 8, SERVE_P, 128, seed=1303)
+    flash_shape("deepseek-coder-33b serving prefill", SERVE_B, 56, 8, SERVE_P, 128, seed=1304)
     return row
 
 
@@ -898,8 +925,9 @@ def phase_grad_sync() -> None:
 # phases 4 and 5: the trainer through its entry point
 # ---------------------------------------------------------------------------
 
-def trainer_args(compression: str, steps: int, layers: int, extra=()) -> list:
-    return ["--arch", "stablelm-3b", "--shape", "train_4k", "--batch", "1",
+def trainer_args(compression: str, steps: int, layers: int, extra=(),
+                 arch: str = "stablelm-3b") -> list:
+    return ["--arch", arch, "--shape", "train_4k", "--batch", "1",
             "--steps", str(steps), "--comm-mode", "explicit", "--compression", compression,
             "--log-every", "1", "--layers", str(layers), *extra]
 
@@ -1025,11 +1053,8 @@ def prefill_logits(arch: str, B: int, P: int, layers: int = 0, **overrides) -> t
     gc.collect()
     torch.cuda.empty_cache()
     params = api.init(torch.Generator(device=DEV).manual_seed(0))
-    base = INPUT_SHAPES["prefill_32k"].smoke()
-    shape = InputShape(base.name, max(P, base.seq_len), base.global_batch, base.kind)
-    prompt = SyntheticLM(cfg, shape, seed=0).batch(0, batch_size=B)["tokens"][:, :P]
     with torch.inference_mode():
-        logits, _ = api.prefill(params, {"tokens": torch.from_numpy(prompt).to(DEV)})
+        logits, _ = api.prefill(params, serve.prompt_batch(cfg, B, P, 0, DEV))
     return logits[:, -1].float().cpu()
 
 
@@ -1038,19 +1063,25 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 SERVE_B, SERVE_P, SERVE_G = 4, 4096, 32
+VLM_PREFIX = get_config("internvl2-2b").prefix_embeds          # 256 patch embeddings
 
 
-def phase_serve(tag: str, arch: str, expect: dict, other_orders: list, layers: int = 0) -> dict:
-    """Serve ``arch`` through ``serve.main`` (``layers`` cuts the depth);
-    ``expect`` holds the launches of each kernel of the path, every other
-    kernel must stay at 0; ``other_orders`` are config overrides that give
-    the plain path another summation order.  Returns the launch counts."""
-    B, P, G = SERVE_B, SERVE_P, SERVE_G
+def phase_serve(tag: str, arch: str, expect: dict, other_orders: list, layers: int = 0,
+                P: int = SERVE_P, exact: bool = False, why: str = "") -> tuple:
+    """Serve ``arch`` through ``serve.main`` (``layers`` cuts the depth, for
+    the reason ``why``); ``expect`` holds the launches of each kernel of the
+    path, every other kernel must stay at 0; ``other_orders`` are config
+    overrides that give the plain path another summation order.  With
+    ``exact`` (no kernel on the path) the kernel and plain runs must agree
+    bit for bit.  Returns the launch counts and the kernel run's result."""
+    B, G = SERVE_B, SERVE_G
     cfg = get_config(arch)
     depth = (f"full depth ({cfg.num_layers} layers)" if not layers
-             else f"{layers} of {cfg.num_layers} layers")
+             else f"{layers} of {cfg.num_layers} layers ({why})")
+    front = (f" behind {cfg.prefix_embeds} prefix embeddings" if cfg.family == "vlm" else
+             f", {cfg.encoder_seq} frames" if cfg.family == "encdec" else "")
     print(f"[{tag}] serving {arch} at full width (d_model {cfg.d_model}, bf16), {depth}: batch {B}, "
-          f"prompt {P}, {G} generated tokens")
+          f"prompt {P}{front}, {G} generated tokens")
     argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(P)]
     if layers:
         argv += ["--layers", str(layers)]
@@ -1079,6 +1110,12 @@ def phase_serve(tag: str, arch: str, expect: dict, other_orders: list, layers: i
     # distance of them.  The kernel run may not stray further than twice that.
     same = prefill_logits(arch, B, P, layers, use_pallas="never")
     check(torch.equal(same, want), "the model-API prefill does not reproduce serve.run's")
+    if exact:
+        print(f"  prefill logits, kernel run vs plain run: max abs "
+              f"{float((logits - want).abs().max()):.3e} (tolerance: equal bit for bit, no kernel "
+              f"on the path)")
+        check(torch.equal(logits, want), f"{arch}: the two runs differ with no kernel on the path")
+        return counts, res
     spreads = []
     for order in other_orders:
         spreads.append(rel_l2(prefill_logits(arch, B, P, layers, use_pallas="never", **order), want))
@@ -1090,7 +1127,7 @@ def phase_serve(tag: str, arch: str, expect: dict, other_orders: list, layers: i
           f"(tolerance: within 2x the plain spread, {max(spreads):.3e})")
     check(rel <= 2 * max(spreads),
           f"{arch}: kernel and plain prefill logits disagree beyond the plain spread")
-    return counts
+    return counts, res
 
 
 def check_float32(arch: str, B: int, layers: int = 0) -> None:
@@ -1498,6 +1535,146 @@ def phase_torchrun_checkpoint() -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 24-30: the remaining model families (the MoE trainer; serving MoE,
+# MLA, the large dense decoders, the VLM prefix and Whisper)
+# ---------------------------------------------------------------------------
+
+def sync_reading(arch: str, layers: int = 0) -> dict:
+    """``sync_grads`` alone, int8, in-process world of one, on random bf16
+    gradients of ``arch``'s full-width tree (CUDA events behind a stream
+    spin, median of 5): ms, the gradient's bf16 bytes, the f32 bucket bytes
+    and the int8 wire bytes (codes and scales) of a step."""
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    gen = torch.Generator(device=DEV).manual_seed(24)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen, device=DEV, dtype=p.dtype),
+                     get_model(cfg).init(None, device="meta"))
+    plan, _ = make_plan(grads, 64.0)
+    comm = CommConfig(mode="explicit", compression="int8")
+    ms = time_device_ms(lambda: sync_grads(grads, InProcessWorld(1), comm), reps=5)
+    n = sum(t.numel() for t in tree_leaves(grads))
+    rows = sum(-(-size // (256 * 64)) * 64 for size in plan.bucket_sizes)   # padded to 64-row tiles
+    out = {"ms": ms, "params": n, "grad_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(grads)),
+           "bucket_bytes": 4 * sum(plan.bucket_sizes), "wire_bytes": rows * 256 + rows * 4,
+           "buckets": plan.n_buckets}
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+MOE_ARCH = "moonshot-v1-16b-a3b"
+
+
+def phase_moe_trainer(phase4: dict) -> dict:
+    """The MoE trainer: ``launch.train.main`` on moonshot-v1-16b-a3b at full
+    width, 1 dense + 3 MoE layers, int8, against a plain run; then the
+    communication share beside stablelm-3b's."""
+    steps, layers = 3, 4
+    cfg = get_config(MOE_ARCH)
+    cfg_run = cfg.replace(num_layers=layers)
+    t_phase = time.perf_counter()
+    print(f"[24] the MoE trainer: {MOE_ARCH} full width (d_model {cfg.d_model}, {cfg.num_heads} heads "
+          f"of {cfg.head_dim}, {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of d_ff "
+          f"{cfg.moe.d_ff_expert} + {cfg.moe.num_shared_experts} shared, vocab {cfg.padded_vocab}, "
+          f"bf16, remat), {layers} of {cfg.num_layers} layers (1 dense + {layers - 1} MoE; the "
+          f"48-layer AdamW state would be about 450 GB), S = 4096, batch 1, explicit comm, int8, "
+          f"AdamW, {steps} steps")
+    result, counts = run_trainer(trainer_args("int8", steps, layers, arch=MOE_ARCH))
+    losses = result["losses"]
+    plan, _ = make_plan(get_model(cfg_run).init(None, device="meta"), 64.0)
+    print(f"  losses {losses}; median step {result['median_step_s']:.4f} s, "
+          f"{result['tokens_per_s']:.1f} tokens/s, first step {result['compile_s']:.3f} s, peak "
+          f"memory {result['peak_gib']:.1f} GiB; {plan.n_buckets} buckets; launches {counts}")
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses), "a loss is not finite")
+    # xent at a uniform guess is ln 163840 = 12.006; the three MoE layers add
+    # their load-balance and router-z losses (about 0.03 each at init)
+    check(11.6 <= losses[0] <= 12.6, f"step-0 loss {losses[0]} outside [11.6, 12.6]")
+    check(counts["flash_attention"] == layers * steps * 2,
+          f"expected {layers * steps * 2} flash launches (forward and remat recompute)")
+    for name in ("quantize_int8_2d", "dequantize_int8_2d", "fused_add_2d"):
+        check(counts[name] == plan.n_buckets * steps,
+              f"expected one {name} per bucket and step ({plan.n_buckets} x {steps})")
+    off = [name for name, c in counts.items()
+           if c and name not in ("flash_attention", "quantize_int8_2d", "dequantize_int8_2d",
+                                 "fused_add_2d")]
+    check(not off, f"the MoE trainer launched kernels off its path: {off}")
+
+    print("  the same seed on the plain versions (use_pallas=never), 2 steps")
+    ref, ref_counts = run_trainer(trainer_args("int8", 2, layers, ["--use-pallas", "never"],
+                                               arch=MOE_ARCH))
+    check(all(c == 0 for c in ref_counts.values()), "the plain run launched a kernel")
+    for i in range(2):
+        rel = abs(losses[i] - ref["losses"][i]) / abs(ref["losses"][i])
+        print(f"  step {i}: kernels {losses[i]:.5f} vs plain {ref['losses'][i]:.5f} (rel diff {rel:.2e}, "
+              f"tolerance 2e-2: bf16 model)")
+        check(rel <= 2e-2, "kernel and plain MoE trainer disagree")
+    print(f"  plain run: median step {ref['median_step_s']:.4f} s")
+
+    moe, dense = sync_reading(MOE_ARCH, layers), sync_reading("stablelm-3b")
+    r4 = phase4["result"]
+    for label, rd, step in ((f"{MOE_ARCH}, {layers} layers", moe, result["median_step_s"]),
+                            ("stablelm-3b, 32 layers (phase 4)", dense, r4["median_step_s"])):
+        print(f"  {label}: {rd['params'] / 1e9:.3f} B parameters, gradient {rd['grad_bytes'] / 1e9:.3f} GB "
+              f"bf16 a step ({rd['buckets']} buckets, {rd['bucket_bytes'] / 1e9:.3f} GB f32, int8 wire "
+              f"{rd['wire_bytes'] / 1e9:.3f} GB); sync_grads int8 alone {rd['ms']:.3f} ms of a "
+              f"{step:.4f} s step = {100 * rd['ms'] / 1e3 / step:.2f} % of it")
+    print(f"  tokens a step 4096 each; gradient bytes a token: {MOE_ARCH} {moe['grad_bytes'] / 4096 / 1e6:.3f} "
+          f"MB, stablelm-3b {dense['grad_bytes'] / 4096 / 1e6:.3f} MB; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"result": result, "counts": counts, "sync": moe, "sync_dense": dense}
+
+
+def phase_families() -> dict:
+    """Phases 25-30: the new families served through ``serve.main`` at full
+    width; each cut in depth only where one card cannot hold it."""
+    out = {}
+    # full depth: 52.9 GiB of bf16 weights, the kernel run's peak under 75 GiB
+    out["moe"], res = phase_serve("25", MOE_ARCH, {"flash_attention": get_config(MOE_ARCH).num_layers},
+                                  [{"attn_chunk": 512}])
+    peaks = {MOE_ARCH: res["peak_gib"]}
+
+    ds = get_config("deepseek-v2-236b")
+    ds_layers = 4
+    counts, res = phase_serve("26", "deepseek-v2-236b", {}, [], layers=ds_layers, exact=True,
+                              why="1 dense + 3 MoE layers: 13.6 B parameters, 25.4 GiB of bf16; "
+                                  "the 60 layers are 448 GiB")
+    tokens = SERVE_B * (SERVE_P + SERVE_G)
+    latent = ds_layers * tokens * (ds.mla_kv_lora + ds.mla_rope_dim) * 2
+    gqa = ds_layers * tokens * 2 * ds.num_heads * ds.head_dim * 2
+    print(f"  MLA: prefill {res['prefill_s']:.3f} s, decode {res['decode_ms_per_token']:.2f} ms/token; "
+          f"latent cache {latent / 2 ** 20:.1f} MiB ({ds.mla_kv_lora} + {ds.mla_rope_dim} bf16 a token "
+          f"and layer) against {gqa / 2 ** 20:.1f} MiB for K/V of {ds.num_heads} heads of {ds.head_dim} "
+          f"({gqa / latent:.1f}x)")
+    out["mla"] = counts
+    peaks["deepseek-v2-236b"] = res["peak_gib"]
+
+    out["arctic"], res = phase_serve("27", "arctic-480b", {"flash_attention": 2}, [{"attn_chunk": 512}],
+                                   layers=2, why="128 experts of d_ff 4864 a layer: 2 layers are 27.7 B "
+                                                 "parameters, 51.6 GiB of bf16")
+    peaks["arctic-480b"] = res["peak_gib"]
+    for tag, arch in (("28a", "command-r-35b"), ("28b", "deepseek-coder-33b")):
+        n = get_config(arch).num_layers
+        out[arch], res = phase_serve(tag, arch, {"flash_attention": n}, [{"attn_chunk": 512}])
+        peaks[arch] = res["peak_gib"]
+    vlm = get_config("internvl2-2b")
+    # S = 256 + 4096 = 4352: a multiple of 128 (the kernel's condition), not of
+    # 512 or 1024, where the plain path takes one block; 256 divides it
+    out["vlm"], res = phase_serve("29", "internvl2-2b", {"flash_attention": vlm.num_layers},
+                                  [{"attn_chunk": 256}])
+    peaks["internvl2-2b"] = res["peak_gib"]
+    wh = get_config("whisper-base")
+    # prompt 384: a multiple of 128 inside Whisper's 448-token text context
+    out["encdec"], res = phase_serve("30", "whisper-base", {"flash_attention": wh.num_layers},
+                                     [{"attn_chunk": 128}, {"attn_chunk": 500}], P=384)
+    peaks["whisper-base"] = res["peak_gib"]
+    print("  kernel runs' peak device memory, GiB: " + ", ".join(f"{a} {g:.1f}" for a, g in peaks.items()))
+    check(max(peaks.values()) <= 75.0, "a served model passed 75 GiB: cut its depth")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32, help="depth of the int8 trainer run")
@@ -1541,9 +1718,9 @@ def main() -> None:
                 [{"attn_chunk": 512}])
     rwkv_cfg = get_config("rwkv6-1.6b")
     # every layer's prefill on the chunked route, every decode step on the step route
-    rwkv_counts = phase_serve("8", "rwkv6-1.6b", {"wkv": rwkv_cfg.num_layers * (1 + SERVE_G),
-                                                  "wkv_chunked": rwkv_cfg.num_layers},
-                              [{"ssm": dataclasses.replace(rwkv_cfg.ssm, chunk_size=64)}])
+    rwkv_counts, _ = phase_serve("8", "rwkv6-1.6b", {"wkv": rwkv_cfg.num_layers * (1 + SERVE_G),
+                                                     "wkv_chunked": rwkv_cfg.num_layers},
+                                 [{"ssm": dataclasses.replace(rwkv_cfg.ssm, chunk_size=64)}])
     print(f"  wkv launches on rwkv6-1.6b serving: {rwkv_counts['wkv']}, of them "
           f"{rwkv_counts['wkv_chunked']} on the chunked route (the prefill's)")
     check_float32("rwkv6-1.6b", 2)
@@ -1558,10 +1735,11 @@ def main() -> None:
     n_mamba = sum(mixer == "mamba" for mixer, _ in jamba_layout(jamba_cfg))
     jamba_orders = [{"attn_chunk": 512, "ssm": dataclasses.replace(jamba_cfg.ssm, chunk_size=64)},
                     {"ssm": dataclasses.replace(jamba_cfg.ssm, chunk_size=256)}]
-    jamba_counts = phase_serve("12", "jamba-v0.1-52b",
-                               {"ssm_scan": n_mamba * (1 + SERVE_G),
-                                "flash_attention": jamba_cfg.hybrid_block_layers - n_mamba},
-                               jamba_orders, layers=jamba_cfg.hybrid_block_layers)
+    jamba_counts, _ = phase_serve("12", "jamba-v0.1-52b",
+                                  {"ssm_scan": n_mamba * (1 + SERVE_G),
+                                   "flash_attention": jamba_cfg.hybrid_block_layers - n_mamba},
+                                  jamba_orders, layers=jamba_cfg.hybrid_block_layers,
+                                  why="its 32 layers are 104 GB of bf16")
     # 53 GB of float32 weights: batch 1 keeps the plain path under 60 GiB
     check_float32("jamba-v0.1-52b", 1, layers=jamba_cfg.hybrid_block_layers)
     measured = phase_cnn_step()
@@ -1572,6 +1750,8 @@ def main() -> None:
     phase_nccl_trainer(args.layers, trained)
     phase_nccl_sync()
     phase_torchrun_checkpoint()
+    phase_moe_trainer(trained)
+    phase_families()
 
     # each kernel's launches on the path that runs it: ternarize on the
     # ternary trainer run, topk_mask on the topk run, wkv on rwkv6 serving,

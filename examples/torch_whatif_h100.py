@@ -7,9 +7,11 @@ port's trainer does) on 8, 64 and 256 H100s (NVLink inside a node of 8,
 InfiniBand at 400 Gbps a GPU across nodes), is the network the bottleneck,
 and does compression help?  Compute is priced at an assumed MFU of 0.4 of
 the H100's dense bf16 rate; ``chip_smoke.py`` prints the same question for
-stablelm-3b at the MFU its measured trainer step reaches.  jamba-v0.1-52b's
-104 GB of bf16 weights do not fit one card: its rows price a replica a GPU
-all the same, as the reference's table does for its larger models.
+stablelm-3b at the MFU its measured trainer step reaches.  The larger
+models (jamba-v0.1-52b, command-r-35b, deepseek-coder-33b, deepseek-v2-236b,
+arctic-480b: 60 GB to 900 GB of bf16 weights) do not fit one card with
+their optimizer state: their rows price a replica a GPU all the same, as
+the reference's table does.
 
 Run:  PYTHONPATH=src python examples/torch_whatif_h100.py
 """

@@ -3,8 +3,9 @@
 Deterministic on (seed, step) so every data-parallel worker can generate
 its own shard without coordination.  Batches are generated with numpy, by
 the same recipe as the JAX package's pipeline, so both frameworks see
-identical tokens; ``device_put_batch`` moves them to the device through
-pinned host memory.
+identical tokens and identical frontend stubs (a VLM's prefix embeddings,
+an encoder-decoder's frames); ``device_put_batch`` moves them to the
+device through pinned host memory.
 """
 from __future__ import annotations
 
@@ -35,8 +36,16 @@ class SyntheticLM:
         S = self.shape.seq_len
         rng = np.random.default_rng((self.seed, step))
         stream = rng.choice(self.cfg.vocab_size, size=(B, S + 1), p=self.probs)
-        return {"tokens": stream[:, :-1].astype(np.int32),
-                "labels": stream[:, 1:].astype(np.int32)}
+        batch = {"tokens": stream[:, :-1].astype(np.int32),
+                 "labels": stream[:, 1:].astype(np.int32)}
+        # the frontend stubs, drawn after the tokens from the same stream
+        if self.cfg.family == "vlm" and self.cfg.prefix_embeds:
+            batch["prefix_embeds"] = rng.standard_normal(
+                (B, self.cfg.prefix_embeds, self.cfg.d_model)).astype(np.float32)
+        if self.cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal(
+                (B, self.cfg.encoder_seq, self.cfg.d_model)).astype(np.float32)
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         step = 0

@@ -1,23 +1,29 @@
-"""Serving launcher: batched prefill + decode loop for the ported families.
+"""Serving launcher: batched prefill + decode loop for every architecture.
 
 Counterpart of ``repro/launch/serve.py``: a prefill step over the prompt
 batch and an autoregressive greedy decode loop against the cache (a
-ring-buffer KV cache for the dense decoder, a recurrent state for RWKV-6,
-both for Jamba: K/V in its attention layers, conv and SSM states in its
-Mamba layers), under ``torch.inference_mode()``.  Reports prefill and per-token decode
-latency and throughput (host clock around work that ends in a device
-synchronise).
+ring-buffer KV cache for the decoders, a latent one for MLA, a recurrent
+state for RWKV-6, both for Jamba: K/V in its attention layers, conv and SSM
+states in its Mamba layers; Whisper's self-attention ring buffer beside its
+cross-attention K/V), under ``torch.inference_mode()``.  A VLM's prefix
+embeddings and Whisper's frames go to the prefill with the prompt; the
+prefix counts in the cache position of every decode step.  Reports prefill
+and per-token decode latency and throughput (host clock around work that
+ends in a device synchronise).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
       --prompt-len 4096 --gen 32 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b --smoke \
       --prompt-len 64 --gen 16 --batch 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base --smoke \
+      --prompt-len 32 --gen 8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --layers 8 \
       --prompt-len 4096 --gen 32 --batch 4
 
 Like the trainer it runs on ``--device cuda`` (the default) and raises when
 CUDA is not available; ``--layers`` cuts the depth (Jamba: to a whole number
-of 8-layer super-blocks) and ``--use-pallas never``
+of 8-layer super-blocks; an MoE decoder: to more than its leading dense
+layers) and ``--use-pallas never``
 takes the plain versions of every hand-written kernel.  One difference from
 the reference on purpose: JAX always builds its prompts from a 64-token
 sample, so a longer ``--prompt-len`` is silently cut to 64 there; here the
@@ -52,6 +58,20 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def prompt_batch(cfg, B: int, P: int, seed: int, device) -> dict:
+    """The prefill's batch on ``device``: ``B`` prompts of ``P`` tokens and
+    the model's frontend stubs (a VLM's ``prefix_embeds``, Whisper's
+    ``frames``), drawn as the reference's launcher draws them."""
+    base = INPUT_SHAPES["prefill_32k"].smoke()
+    shape = InputShape(base.name, max(P, base.seq_len), base.global_batch, base.kind)
+    raw = SyntheticLM(cfg, shape, seed=seed).batch(0, batch_size=B)
+    batch = {"tokens": torch.from_numpy(raw["tokens"][:, :P]).to(device)}
+    for key in ("prefix_embeds", "frames"):
+        if key in raw:
+            batch[key] = torch.from_numpy(raw[key]).to(device)
+    return batch
+
+
 def run(args, params=None) -> dict:
     """Prefill ``--batch`` prompts of ``--prompt-len`` tokens, then decode
     ``--gen`` tokens greedily.  ``params`` (the model's tree on the device)
@@ -65,24 +85,24 @@ def run(args, params=None) -> dict:
 
     if params is None:
         params = api.init(torch.Generator(device=device).manual_seed(args.seed))
-    base = INPUT_SHAPES["prefill_32k"].smoke()
-    shape = InputShape(base.name, max(P, base.seq_len), base.global_batch, base.kind)
-    raw = SyntheticLM(cfg, shape, seed=args.seed).batch(0, batch_size=B)
-    prompt = torch.from_numpy(raw["tokens"][:, :P]).to(device)
+    batch = prompt_batch(cfg, B, P, args.seed, device)
+    # cache entries written by the prefill: the prompt (and a VLM's prefix)
+    n_cached = P + (cfg.prefix_embeds if cfg.family == "vlm" else 0)
 
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = api.prefill(params, {"tokens": prompt})
+        logits, cache = api.prefill(params, batch)
         _sync(device)
         t_prefill = time.perf_counter() - t0
-        cache = pad_cache(cache, P + G)          # headroom for generated tokens
+        cache = pad_cache(cache, n_cached + G)   # headroom for generated tokens
 
         tokens = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         generated = [tokens]
         t0 = time.perf_counter()
         for i in range(G):
-            step_logits, cache = api.decode_step(params, {"tokens": tokens}, cache, P + i)
+            step_logits, cache = api.decode_step(params, {"tokens": tokens}, cache,
+                                                 n_cached + i)
             tokens = torch.argmax(step_logits[:, -1:], dim=-1).to(torch.int32)
             generated.append(tokens)
         _sync(device)
@@ -252,7 +272,7 @@ def serve(args) -> None:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-3b",
-                    help="a ported architecture: stablelm-3b, rwkv6-1.6b or jamba-v0.1-52b")
+                    help="any registered architecture (repro_torch.configs.archs.ALL_ARCHS)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
@@ -271,7 +291,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (default; raises when there is none) or cpu")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0 = the config's; "
-                         "jamba-v0.1-52b: a multiple of 8)")
+                         "jamba-v0.1-52b: a multiple of 8; MoE: more than moe.first_dense)")
     ap.add_argument("--use-pallas", default="", choices=["", "auto", "always", "never"],
                     help="hand-written kernels: auto = on CUDA tensors; never = "
                          "plain versions everywhere (reference runs)")

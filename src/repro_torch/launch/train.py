@@ -38,6 +38,8 @@ Examples:
       --shape train_4k --batch 1 --steps 5 --comm-mode explicit --compression int8
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b --smoke \
       --steps 20 --comm-mode explicit --compression int8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b --smoke \
+      --steps 3 --comm-mode explicit --compression int8 --device cpu
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 4 \
       -m repro_torch.launch.train --smoke --batch 4 --steps 3 --device cpu \
       --comm-mode explicit --compression int8 --ckpt-dir /tmp/ckpt --ckpt-every 2
@@ -148,6 +150,10 @@ def config_from_args(args):
         # JAX floors num_layers // hybrid_block_layers and drops the rest
         raise ValueError(f"{cfg.name}: --layers must be a positive multiple of "
                          f"{cfg.hybrid_block_layers} (one super-block), got {cfg.num_layers}")
+    if cfg.moe is not None and not cfg.hybrid_block_layers and cfg.num_layers <= cfg.moe.first_dense:
+        # JAX builds an MoE stack of no layers that its forward never runs
+        raise ValueError(f"{cfg.name}: --layers must exceed the {cfg.moe.first_dense} leading "
+                         f"dense layer(s) (moe.first_dense), got {cfg.num_layers}")
     return cfg
 
 
@@ -293,7 +299,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when there is none) or cpu")
     ap.add_argument("--layers", type=int, default=0,
-                    help="cut the depth to this many layers (0 = the config's)")
+                    help="cut the depth to this many layers (0 = the config's; "
+                         "jamba-v0.1-52b: a multiple of 8; MoE: more than moe.first_dense)")
     ap.add_argument("--use-pallas", default="", choices=["", "auto", "always", "never"],
                     help="hand-written kernels: auto = on CUDA tensors; never = "
                          "plain versions everywhere (reference runs)")

@@ -1,10 +1,11 @@
-"""Grouped-query attention: chunked online-softmax attention as plain tensor
-code, the dispatch to the hand-written flash kernel, the GQA block, and
-single-token decode against a ring-buffer KV cache.
+"""Attention variants: chunked online-softmax attention as plain tensor
+code, the dispatch to the hand-written flash kernel, the GQA block, MLA
+(DeepSeek-V2 multi-head latent attention), and single-token decode against
+a ring-buffer cache (K/V for GQA, the latent and the shared rope key for
+MLA).
 
 Memory discipline: the plain path never materializes an (Sq, Skv) score
-matrix larger than (chunk, chunk) per (batch, kv-head, group).  MLA is not
-ported yet.
+matrix larger than (chunk, chunk) per (batch, kv-head, group).
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attn import flash_attention_cuda
-from repro_torch.models.layers import Params, apply_rope, dense_init, torch_dtype
+from repro_torch.models.layers import (Params, _device_of, apply_rope, dense_init, rms_norm,
+                                       torch_dtype)
 
 NEG_INF = -1e30
 
@@ -227,3 +229,90 @@ def gqa_decode(params: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     out = decode_attention(q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2), valid)
     out = out.transpose(1, 2).reshape(B, 1, H * hd)
     return out @ params["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, cfg: ModelConfig, n_layers: int = 0, device=None) -> Params:
+    D, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    L, R = cfg.mla_kv_lora, cfg.mla_rope_dim
+    lead = (n_layers,) if n_layers else ()
+    dtype = torch_dtype(cfg.dtype)
+    return {
+        "w_dkv": dense_init(gen, lead + (D, L), dtype, device=device),      # down-proj to latent
+        "w_kr": dense_init(gen, lead + (D, R), dtype, device=device),       # shared rope key
+        "w_uk": dense_init(gen, lead + (L, H * hd), dtype, device=device),  # up-proj keys
+        "w_uv": dense_init(gen, lead + (L, H * hd), dtype, device=device),  # up-proj values
+        "w_q": dense_init(gen, lead + (D, H * (hd + R)), dtype, device=device),
+        "w_o": dense_init(gen, lead + (H * hd, D), dtype, device=device),
+        "ln_kv": torch.ones(lead + (L,), dtype=dtype, device=_device_of(gen, device)),
+    }
+
+
+def _mla_qkv(params, x, cfg: ModelConfig, pos):
+    """Shared projections.  Returns q_nope (B, H, S, hd), q_rope (B, H, S,
+    R), the latent c_kv (B, S, L) and k_rope (B, S, R)."""
+    B, S, _ = x.shape
+    H, hd, R = cfg.num_heads, cfg.head_dim, cfg.mla_rope_dim
+    q = (x @ params["w_q"]).reshape(B, S, H, hd + R).transpose(1, 2)
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    c_kv = rms_norm(x @ params["w_dkv"], params["ln_kv"], cfg.norm_eps)
+    k_rope = apply_rope((x @ params["w_kr"])[:, None], pos, cfg.rope_theta)[:, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                q_offset: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training / prefill path.  x: (B, S, D) -> (out, {c_kv, k_rope}).
+    The attention is called without ``cfg`` and its q/k dim (hd + R) is not
+    its v dim (hd), so it never takes the flash kernel, as in JAX."""
+    B, S, _ = x.shape
+    H, hd, R = cfg.num_heads, cfg.head_dim, cfg.mla_rope_dim
+    pos = q_offset + torch.arange(S, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, cfg, pos)
+    k_nope = (c_kv @ params["w_uk"]).reshape(B, S, H, hd).transpose(1, 2)
+    v = (c_kv @ params["w_uv"]).reshape(B, S, H, hd).transpose(1, 2)
+    # fold the shared rope key into every head by concatenation
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, None].expand(B, H, S, R)], dim=-1)
+    out = flash_attention(q_full, k_full, v, causal=True, window=cfg.sliding_window,
+                          chunk=cfg.attn_chunk, q_offset=q_offset)
+    out = out.transpose(1, 2).reshape(B, S, H * hd)
+    return out @ params["w_o"], {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_decode(params: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               cache_index: int, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode against the latent cache: c_kv (B, W, L), k_rope
+    (B, W, R).  The new token's latent and rope key go into slot
+    ``cache_index % W`` in place, as in ``gqa_decode``; ``w_uk`` is absorbed
+    into the query, so the scores are taken in the latent space."""
+    B = x.shape[0]
+    H, hd, R = cfg.num_heads, cfg.head_dim, cfg.mla_rope_dim
+    W = cache["c_kv"].shape[1]
+    cache_index = int(cache_index)
+    pos = torch.tensor([cache_index], device=x.device)
+    q_nope, q_rope, c_new, kr_new = _mla_qkv(params, x, cfg, pos)
+    slot = cache_index % W
+    cache["c_kv"][:, slot] = c_new[:, 0]
+    cache["k_rope"][:, slot] = kr_new[:, 0]
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    n_valid = min(cache_index + 1, W)
+    valid = torch.arange(W, device=x.device)[None, :] < n_valid          # (1, W)
+    # (B, H, hd) x (L, H, hd) -> the query in the latent space (B, H, L)
+    w_uk = params["w_uk"].reshape(-1, H, hd)
+    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, :, 0], w_uk)
+    s = torch.einsum("bhl,bwl->bhw", q_lat.float(), c_kv.float())
+    s = s + torch.einsum("bhr,bwr->bhw", q_rope[:, :, 0].float(), k_rope.float())
+    s = s / math.sqrt(hd + R)
+    s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhw,bwl->bhl", p, c_kv.float())                   # latent context
+    w_uv = params["w_uv"].reshape(-1, H, hd)
+    out = torch.einsum("bhl,lhd->bhd", ctx, w_uv.float())
+    out = out.reshape(B, 1, H * hd).to(x.dtype)
+    return out @ params["w_o"], cache

@@ -3,13 +3,15 @@
 ``get_model(cfg)`` returns a ``ModelApi`` whose members close over ``cfg``:
 
     init(generator, device=None) -> params
-    loss_fn(params, batch) -> (loss, metrics)          # batch: tokens/labels
+    loss_fn(params, batch) -> (loss, metrics)          # batch: tokens/labels(+frontend)
     prefill(params, batch) -> (logits, caches)
     decode_step(params, batch, cache, cache_index) -> (logits, new_cache)
     cache_spec(batch_size, cache_len) -> tree of (shape, dtype) tuples
 
-Ported families: the dense GQA decoder, RWKV-6 (``family="ssm"``,
-``ssm.kind="rwkv6"``) and Jamba (``family="hybrid"``, Mamba layers).
+Every family of the reference: the decoder (``dense``, ``moe``, ``vlm``;
+GQA or MLA attention), RWKV-6 (``ssm``), Jamba (``hybrid``) and Whisper
+(``encdec``).  The frontend stubs travel in the batch: ``prefix_embeds``
+for a VLM, ``frames`` for Whisper.
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ def _transformer_api(cfg: ModelConfig) -> ModelApi:
         return t.loss_fn(params, batch, cfg)
 
     def prefill(params, batch):
-        return t.prefill(params, batch["tokens"], cfg)
+        return t.prefill(params, batch["tokens"], cfg,
+                         prefix_embeds=batch.get("prefix_embeds"))
 
     def decode_step(params, batch, cache, cache_index):
         return t.decode_step(params, batch["tokens"], cache, cache_index, cfg)
@@ -77,6 +80,22 @@ def _hybrid_api(cfg: ModelConfig) -> ModelApi:
                     loss_fn, prefill, decode_step, lambda b, w: j.cache_spec(cfg, b, w))
 
 
+def _encdec_api(cfg: ModelConfig) -> ModelApi:
+    from repro_torch.models import whisper as w
+
+    def loss_fn(params, batch):
+        return w.loss_fn(params, batch, cfg)
+
+    def prefill(params, batch):
+        return w.prefill(params, batch["tokens"], batch["frames"], cfg)
+
+    def decode_step(params, batch, cache, cache_index):
+        return w.decode_step(params, batch["tokens"], cache, cache_index, cfg)
+
+    return ModelApi(cfg, lambda gen, device=None: w.init_model(gen, cfg, device=device),
+                    loss_fn, prefill, decode_step, lambda b, wl: w.cache_spec(cfg, b, wl))
+
+
 # cache leaves whose dim-2 is the ring-buffer/sequence axis
 _SEQ_CACHE_LEAVES = {"k", "v", "c_kv", "k_rope"}
 
@@ -85,7 +104,7 @@ def pad_cache(cache: Any, new_len: int) -> Any:
     """Grow the ring-buffer (W) axis of a prefill cache to ``new_len`` so
     decode can append tokens.  Recurrent-state leaves (RWKV ``state``,
     ``tm_x``, ``cm_x``; Mamba ``conv``, ``ssm``) are untouched (they have no
-    growing axis)."""
+    growing axis), and so are Whisper's cross-attention ``xk``, ``xv``."""
 
     def walk(node, name=None):
         if isinstance(node, dict):
@@ -103,13 +122,18 @@ def pad_cache(cache: Any, new_len: int) -> Any:
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
         return _transformer_api(cfg)
-    if cfg.family == "ssm" and cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+    if fam == "ssm":
+        if cfg.ssm is None or cfg.ssm.kind != "rwkv6":
+            raise ValueError(f"{cfg.name}: family 'ssm' is RWKV-6 (ssm.kind 'rwkv6')")
         return _ssm_api(cfg)
-    if (cfg.family == "hybrid" and cfg.ssm is not None and cfg.ssm.kind == "mamba"
-            and cfg.hybrid_block_layers > 0):
+    if fam == "hybrid":
+        if cfg.ssm is None or cfg.ssm.kind != "mamba" or cfg.hybrid_block_layers <= 0:
+            raise ValueError(f"{cfg.name}: family 'hybrid' is Jamba (Mamba layers in "
+                             f"super-blocks of hybrid_block_layers)")
         return _hybrid_api(cfg)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (only the dense decoder, RWKV-6 and "
-        f"Jamba are)")
+    if fam == "encdec":
+        return _encdec_api(cfg)
+    raise ValueError(f"unknown family: {fam}")

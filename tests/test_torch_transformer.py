@@ -100,8 +100,10 @@ def test_convert_round_trip_and_bf16_cast():
 
 def test_serving_members_raise_and_other_families_wait():
     """The serving members run (their values are held to JAX by
-    tests/test_torch_serve.py); the families not ported raise, and the
-    hybrid family builds Jamba's API."""
+    tests/test_torch_serve.py); a family the reference does not know raises
+    its ``ValueError``, as do an ``ssm`` config without RWKV-6 and a
+    ``hybrid`` one without Mamba layers; the ``moe`` family builds the
+    decoder and the hybrid family Jamba's API."""
     ct = tget("stablelm-3b").smoke()
     api = tmodel(ct)
     params = api.init(torch.Generator().manual_seed(0))
@@ -117,14 +119,17 @@ def test_serving_members_raise_and_other_families_wait():
         step, cache2 = api.decode_step(params, {"tokens": tokens[:, :1]}, cache, 16)
     assert tuple(step.shape) == (2, 1, ct.padded_vocab) and cache2 is cache
     assert bool(cache["blocks"]["k"][:, :, 16].any()) and not bool(cache["blocks"]["k"][:, :, 17].any())
-    with pytest.raises(NotImplementedError):
-        tmodel(ct.replace(family="moe"))
+    with pytest.raises(ValueError, match="unknown family"):
+        tmodel(ct.replace(family="cnn"))
+    moe = tmodel(tget("moonshot-v1-16b-a3b").smoke())                # the decoder's MoE branch
+    assert sorted(moe.init(None, device="meta")) == ["blocks", "embed", "final_norm",
+                                                     "first_blocks", "lm_head"]
     # the hybrid family is Jamba now (its values: tests/test_torch_jamba.py)
     jamba = tmodel(tget("jamba-v0.1-52b").smoke())
     assert jamba.cfg.family == "hybrid"
     assert sorted(jamba.cache_spec(2, 20)) == [f"l{i}" for i in range(8)]
     assert "ssm" in jamba.init(None, device="meta")["blocks"]["l0"]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Jamba"):
         tmodel(ct.replace(family="hybrid"))                          # no Mamba config
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="RWKV-6"):
         tmodel(tget("rwkv6-1.6b").smoke().replace(ssm=ct.ssm))    # an ssm family without rwkv6

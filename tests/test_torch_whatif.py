@@ -2,10 +2,11 @@
 builders of ``core/whatif.py`` and ``h100_whatif`` against the JAX
 package's.
 
-- ``flops``: every count of every architecture the reference registers (the
-  port's three configs, and the other seven rebuilt field by field as the
-  port's ``ModelConfig`` so that the MoE, MLA, encoder-decoder and VLM
-  branches run) equal the reference's: integers exactly, FLOPs within 1e-12;
+- ``flops``: every count of every architecture the reference registers (all
+  ten are the port's own configs, each equal to the reference's rebuilt
+  field by field as the port's ``ModelConfig``; the MoE, MLA,
+  encoder-decoder and VLM branches run) equal the reference's: integers
+  exactly, FLOPs within 1e-12;
 - ``from_transformer`` at the H100's rate against the reference's at the
   same rate, within 1e-12;
 - ``h100_whatif`` against the reference's ``simulate`` fed the reference's
@@ -82,7 +83,8 @@ def test_the_port_configs_are_the_reference_configs():
 @pytest.mark.parametrize("arch", JALL_ARCHS)
 def test_flops_equal_the_reference(arch):
     jcfg = jget_config(arch)
-    cfg = get_config(arch) if arch in ALL_ARCHS else _port_config(jcfg)
+    cfg = get_config(arch)                       # every reference arch is registered in the port
+    assert cfg == _port_config(jcfg)
     assert tflops.param_count(cfg) == jflops.param_count(jcfg)
     assert tflops.active_param_count(cfg) == jflops.active_param_count(jcfg)
     assert tflops._decoder_layer_kinds(cfg) == jflops._decoder_layer_kinds(jcfg)
@@ -316,7 +318,9 @@ def test_torch_whatif_h100_table():
     with contextlib.redirect_stdout(io.StringIO()) as out:
         rows = torch_whatif_h100.main()
     assert "jamba-v0.1-52b" in out.getvalue()
+    assert len(ALL_ARCHS) == len(JALL_ARCHS) == 10
     assert len(rows) == len(ALL_ARCHS) * 3 * 2
+    assert {r["arch"] for r in rows} == set(JALL_ARCHS)
     for r in rows:
         assert 0.0 < r["scaling"] <= 1.0
         want = twhatif.h100_whatif(get_config(r["arch"]), torch_whatif_h100.TRAIN_SHAPE,

@@ -90,8 +90,9 @@ def main() -> None:
             t0 = sync()
             logits, cache = api.prefill(params, batch)
             t1 = sync()
+        counts = {**build.launch_counts, **build.route_counts}
         print(f"{cfg.name}, {cfg.num_layers} layers, batch {B}, prompt {P}; launches "
-              f"{ {k: v for k, v in build.launch_counts.items() if v} }")
+              f"{ {k: v for k, v in counts.items() if v} }")
         report("prefill (traced)", prof, (t1 - t0) * 1e3, args.top)
 
         cache = pad_cache(cache, n_cached + G + 1)

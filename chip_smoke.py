@@ -29,7 +29,10 @@ through their entry points:
   under other summation orders) and, for rwkv6-1.6b and jamba-v0.1-52b, in
   float32 too;
 - one Mamba mixer of jamba-v0.1-52b at full width in float32, forward and
-  gradients, through the selective-scan kernel against the plain scan;
+  gradients, through the fused selective scan (``csrc/ssm_scan_sm90.cu``,
+  the discretisation inside the scan) against the plain scan, and one
+  ``bf16_stream`` forward through the TPU-signature scan
+  (``csrc/ssm_scan.cu``);
 - the trainer with ``--compression topk`` (stablelm-3b) and the trainer on
   rwkv6-1.6b (int8), 8 layers each;
 - the paper's own workloads, VGG-16, ResNet-50 and ResNet-101 at full width
@@ -685,31 +688,165 @@ def phase_ssm_scan(main_shape=(4, 4096, 16, 8192)) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
 
 
+def fused_inputs(B, S, n, di, seed, x_dtype=torch.bfloat16, h0_model=True):
+    """dt, x, b_t, c_t, a, h0 for ``ss.ssm_scan_fused`` as the mixer makes
+    them: dt the softplus of noise around the model's dt_bias, x in its own
+    dtype, a = -(1..n) (the S4D-real init), h0 in the model's (B, di, n)
+    layout or as a strided view of a (B, n, di) tensor."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    dt0 = torch.exp(torch.rand(di, generator=g, device=DEV) * math.log(100.0) + math.log(1e-3))
+    bias = dt0 + torch.log(-torch.expm1(-dt0))            # the model's dt_bias
+    dt = F.softplus(torch.randn(B, S, di, generator=g, device=DEV) * 0.5 + bias)
+    x = torch.randn(B, S, di, generator=g, device=DEV).to(x_dtype)
+    b_t = torch.randn(B, S, n, generator=g, device=DEV)
+    c_t = torch.randn(B, S, n, generator=g, device=DEV)
+    a = -torch.arange(1, n + 1, device=DEV, dtype=torch.float32).expand(di, n).contiguous()
+    if h0_model:
+        h0 = torch.randn(B, di, n, generator=g, device=DEV) * 0.1
+    else:
+        h0 = (torch.randn(B, n, di, generator=g, device=DEV) * 0.1).transpose(1, 2)
+    return dt, x, b_t, c_t, a, h0
+
+
+def sm_clock_hz() -> float:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def fused_bound_ms(B, S, n, di, x_bytes, clock_hz) -> tuple:
+    """(bound, by, bytes term, f32 operations term, exp term) in ms: dt f32,
+    x and y f32 each once per (b, t, d); B and C; a; h0 and h.  About 6 f32
+    operations a state element (dt*a, dtx*b, the state's multiply-add and
+    y's) and dt*x per channel; one exp a state element on the
+    special-function units, 16 a clock on each SM."""
+    nbytes = B * S * di * (4 + x_bytes + 4) + 2 * B * S * n * 4 + di * n * 4 + 2 * B * di * n * 4
+    elems = B * S * di * n
+    n_sm = torch.cuda.get_device_properties(DEV).multi_processor_count
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (6.0 * elems + B * S * di) / F32_FLOPS * 1e3
+    t_exp = elems / (16.0 * n_sm * clock_hz) * 1e3
+    bound = max(t_bytes, t_ops, t_exp)
+    return bound, ("bytes" if bound == t_bytes else "operations"), t_bytes, t_ops, t_exp
+
+
+def phase_ssm_fused() -> dict:
+    """The fused selective scan (csrc/ssm_scan_sm90.cu) against
+    ``ssm_scan_fused_plain`` at the main path's shapes and ragged ones."""
+    print("[2g] ssm_scan_fused (csrc/ssm_scan_sm90.cu: exp(dt*A) and dt*x*B formed inside the scan) "
+          "vs ssm_scan_fused_plain (tolerance rtol = atol = 1e-4, phase 2f's: f32 state, fused "
+          "multiply-adds and a shuffle sum against separate roundings)")
+    clock = sm_clock_hz()
+    print(f"  SM clock (nvidia-smi clocks.max.sm) {clock / 1e6:.0f} MHz, "
+          f"{torch.cuda.get_device_properties(DEV).multi_processor_count} SMs")
+
+    def line(label, B, S, n, di, x_dtype, err, ms, plain_ms):
+        bound, by, tb, to, te = fused_bound_ms(B, S, n, di, torch.finfo(x_dtype).bits // 8, clock)
+        print(f"  {label} (B,S,d_inner,n)=({B},{S},{di},{n}) x {str(x_dtype).split('.')[-1]}: max abs "
+              f"err {err:.2e}, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}; "
+              f"bytes {tb:.4f}, f32 operations {to:.4f}, exp {te:.4f}), {100 * bound / ms:.0f} % of "
+              f"the bound")
+        return bound, by
+
+    # S and d_inner not multiples of 128; each of the launch's shapes (4
+    # states a thread below 64 steps or at n <= 4, 8 above) with and without
+    # the bulk copies (d_inner % 8, n % NPT), and 1 to 8 lanes a channel
+    for i, (B, S, di, n) in enumerate([(2, 100, 200, 16), (1, 300, 96, 8), (3, 65, 130, 12),
+                                       (2, 50, 64, 5), (2, 40, 33, 16), (1, 33, 8192, 16),
+                                       (8, 40, 4100, 12), (2, 40, 64, 32), (5, 70, 4100, 12),
+                                       (3, 70, 8200, 5), (4, 100, 8192, 16), (2, 96, 8192, 32),
+                                       (2, 80, 96, 3), (2, 80, 128, 4)]):
+        for x_dtype in (torch.float32, torch.bfloat16):
+            for h0_model in (True, False):
+                args = fused_inputs(B, S, n, di, seed=70 + i, x_dtype=x_dtype, h0_model=h0_model)
+                err = ssm_err(ss.ssm_scan_fused(*args), ss.ssm_scan_fused_plain(*args))
+            ms = time_device_ms(lambda: ss.ssm_scan_fused(*args), reps=5)
+            plain_ms = time_ms(lambda: ss.ssm_scan_fused_plain(*args), reps=3, warmup=1)
+            line("ragged", B, S, n, di, x_dtype, err, ms, plain_ms)
+    print("  (each ragged shape also with h0 a strided (B, n, d_inner) view: equal within tolerance)")
+    # state chain: two calls that carry h equal one call over both halves
+    dt, x, b_t, c_t, a, h0 = fused_inputs(2, 512, 16, 1024, seed=80)
+    y, h = ss.ssm_scan_fused(dt, x, b_t, c_t, a, h0)
+    y1, h1 = ss.ssm_scan_fused(dt[:, :200], x[:, :200], b_t[:, :200], c_t[:, :200], a, h0)
+    y2, h2 = ss.ssm_scan_fused(dt[:, 200:], x[:, 200:], b_t[:, 200:], c_t[:, 200:], a, h1)
+    err = ssm_err((torch.cat([y1, y2], dim=1), h2), (y, h))
+    print(f"  state chain, 200 + 312 = 512 steps: max abs err {err:.2e}")
+    for bad, why in (((dt.double(), x, b_t, c_t, a, h0), "float64 dt"),
+                     ((dt, x, b_t[..., :4], c_t, a, h0), "b_t of another n"),
+                     ((dt, x, torch.zeros(2, 512, 40, device=DEV), torch.zeros(2, 512, 40, device=DEV),
+                       torch.zeros(1024, 40, device=DEV), torch.zeros(2, 1024, 40, device=DEV)),
+                      "n = 40 > 32")):
+        try:
+            ss.ssm_scan_fused(*bad)
+        except ValueError:
+            pass
+        else:
+            check(False, f"ssm_scan_fused took {why}")
+    del dt, x, b_t, c_t, a, h0, y, h, y1, y2, h1, h2
+    torch.cuda.empty_cache()
+
+    row = None
+    # jamba-v0.1-52b: serving prefill (batch 4, prompt 4096, bf16 x), the
+    # trainer's batch 1; then the decode step, 224 of the 231 launches of
+    # jamba serving (7 Mamba layers x 32 tokens), timed behind the stream spin
+    for label, B, S in (("serving prefill", SERVE_B, SERVE_P), ("trainer", 1, 4096),
+                        ("decode step", SERVE_B, 1)):
+        n, di = 16, 8192
+        args = fused_inputs(B, S, n, di, seed=90 + B + S)
+        want = ss.ssm_scan_fused_plain(*args)
+        err = ssm_err(ss.ssm_scan_fused(*args), want)
+        y_max = float(want[0].abs().max())
+        del want
+        ms = time_device_ms(lambda: ss.ssm_scan_fused(*args))
+        plain_ms = time_ms(lambda: ss.ssm_scan_fused_plain(*args), reps=3, warmup=1)
+        bound, by = line(label, B, S, n, di, torch.bfloat16, err, ms, plain_ms)
+        if row is None:
+            print(f"    |y| up to {y_max:.2f}; library: none (no single PyTorch call)")
+            row = {"name": "ssm_scan", "route": "cuda", "source": CSRC + "ssm_scan_sm90.cu",
+                   "sources": [CSRC + "ssm_scan_sm90.cu", CSRC + "ssm_scan.cu"],
+                   "replaces": "src/repro/kernels/ssm_scan.py:65", "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None}
+        del args
+        torch.cuda.empty_cache()
+    return row
+
+
 def phase_mamba_mixer(S: int = 4096) -> None:
     """One Mamba layer of jamba-v0.1-52b at full width in float32: the
-    kernel path against the plain ``assoc`` scan, forward and gradients."""
+    fused kernel route against the plain ``assoc`` scan, forward and
+    gradients; then one forward under ``bf16_stream``, the path that keeps
+    the TPU-signature kernel (csrc/ssm_scan.cu), against its plain twin."""
     B = 1
     cfg = get_config("jamba-v0.1-52b").replace(dtype="float32")
     print(f"[6] Mamba mixer, jamba-v0.1-52b full width (d_model {cfg.d_model}, d_inner "
-          f"{mb.dims(cfg)[0]}, d_state {cfg.ssm.d_state}), float32, batch {B}, prompt {S}: kernel vs "
-          f"use_pallas=never (tolerance: output 1e-4, gradients 1e-3 relative L2; f32, order of sums)")
+          f"{mb.dims(cfg)[0]}, d_state {cfg.ssm.d_state}), float32, batch {B}, prompt {S}: the fused "
+          f"kernel route vs use_pallas=never (tolerance: output 1e-4, gradients 1e-3 relative L2; "
+          f"f32, order of sums)")
     torch.cuda.empty_cache()
     params = mb.init_mamba(torch.Generator(device=DEV).manual_seed(0), cfg)
     x = randn(B, S, cfg.d_model, seed=60)
     cot = randn(B, S, cfg.d_model, seed=61)
-    results = {}
+    results, peaks = {}, {}
     for mode in ("auto", "never"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         build.reset_launch_counts()
         xg = x.clone().requires_grad_(True)
         w_in = params["w_in"].detach().clone().requires_grad_(True)
         out, state = mb.mamba_mixer({**params, "w_in": w_in}, xg, cfg.replace(use_pallas=mode))
         gx, gw = torch.autograd.grad(torch.sum(out * cot), (xg, w_in))
         torch.cuda.synchronize()
-        results[mode] = (out.detach(), state["ssm"].detach(), gx, gw, build.launch_counts["ssm_scan"])
+        peaks[mode] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        results[mode] = (out.detach(), state["ssm"].detach(), gx, gw,
+                         build.launch_counts["ssm_scan"], build.route_counts["ssm_scan_fused"])
         del out, state, xg, w_in
-        torch.cuda.empty_cache()
-    check(results["auto"][4] == 1 and results["never"][4] == 0,
-          "expected one ssm_scan launch on the kernel path, none on the plain one")
+    check(results["auto"][4:] == (1, 1) and results["never"][4:] == (0, 0),
+          "expected one ssm_scan launch, on the fused route, on the kernel path and none on the plain one")
+    print(f"  peak device memory above the inputs, forward and backward: fused route "
+          f"{peaks['auto']:.2f} GiB, plain {peaks['never']:.2f} GiB")
     names = ["output", "final state", "d loss / d x", "d loss / d w_in"]
     tols = [1e-4, 1e-4, 1e-3, 1e-3]
     for i, (name, tol) in enumerate(zip(names, tols)):
@@ -718,12 +855,31 @@ def phase_mamba_mixer(S: int = 4096) -> None:
         rel = rel_l2(a, b)
         print(f"  {name}: rel L2 {rel:.3e} (tolerance {tol:.0e})")
         check(rel <= tol, f"Mamba mixer {name}: kernel and plain disagree")
-    del params, results
+    del results
+    # bf16_stream: decay, bx, C and h0 rounded to bf16, the scan in f32 on
+    # the TPU-signature kernel; its plain twin is the seq scan on the same
+    # bf16 inputs (the chunked one would carry a bf16 state)
+    outs = {}
+    for mode, extra in (("auto", {}), ("never", {"mamba_scan_impl": "seq"})):
+        build.reset_launch_counts()
+        with torch.no_grad():
+            outs[mode], _ = mb.mamba_mixer(params, x, cfg.replace(use_pallas=mode, bf16_stream=True,
+                                                                   **extra))
+        torch.cuda.synchronize()
+        outs[mode + " counts"] = (build.launch_counts["ssm_scan"], build.route_counts["ssm_scan_fused"])
+    check(outs["auto counts"] == (1, 0) and outs["never counts"] == (0, 0),
+          "bf16_stream: expected one launch of csrc/ssm_scan.cu and none of the fused route")
+    rel = rel_l2(outs["auto"], outs["never"])
+    print(f"  bf16_stream forward (csrc/ssm_scan.cu, 1 launch) vs the plain seq scan on the same bf16 "
+          f"inputs: output rel L2 {rel:.3e} (tolerance 1e-4)")
+    check(bool(torch.isfinite(outs["auto"]).all()) and rel <= 1e-4,
+          "Mamba mixer under bf16_stream: kernel and plain disagree")
+    del params, outs
     torch.cuda.empty_cache()
 
 
 def phase_dequantize(R_main: int) -> dict:
-    print("[2g] dequantize_int8_2d vs plain (tolerance: equal bit for bit, one rounded product)")
+    print("[2h] dequantize_int8_2d vs plain (tolerance: equal bit for bit, one rounded product)")
     g = torch.Generator(device=DEV).manual_seed(400)
     for R in (64, 1):                                     # a tile of rows; one row of a tile
         q = torch.randint(-128, 128, (R, 256), generator=g, device=DEV, dtype=torch.int8)
@@ -778,7 +934,7 @@ def phase_dequantize(R_main: int) -> dict:
 
 
 def phase_probe(R_main: int) -> dict:
-    print("[2h] probe_copy_2d vs plain (tolerance: equal bit for bit)")
+    print("[2i] probe_copy_2d vs plain (tolerance: equal bit for bit)")
     for R in (64, 1):
         x = randn(R, 256, seed=420 + R)
         x.view(-1)[1] = float("nan")
@@ -1703,7 +1859,12 @@ def main() -> None:
     rows.append(phase_topk(R_main))
     rows.append(phase_wkv())
     torch.cuda.empty_cache()
-    rows.append(phase_ssm_scan())
+    tpu_row = phase_ssm_scan()
+    torch.cuda.empty_cache()
+    ssm_row = phase_ssm_fused()           # the row carries the fused route, the main path's
+    ssm_row["tpu_signature"] = {k: tpu_row[k] for k in ("source", "ms", "plain_ms", "bound_ms",
+                                                         "max_abs_err")}
+    rows.append(ssm_row)
     torch.cuda.empty_cache()
     rows.append(phase_dequantize(R_main))
     torch.cuda.empty_cache()
@@ -1730,16 +1891,21 @@ def main() -> None:
     # jamba-v0.1-52b: one super-block at full width (26.6 GB of bf16 weights;
     # two are 53 GB before any activation, the 32-layer model's 104 GB do not
     # fit one card).  Per super-block 7 Mamba layers (one scan per prefill and
-    # per decode step) and 1 attention layer (flash in the prefill only)
+    # per decode step, every one on the fused route) and 1 attention layer
+    # (flash in the prefill only)
     jamba_cfg = get_config("jamba-v0.1-52b")
     n_mamba = sum(mixer == "mamba" for mixer, _ in jamba_layout(jamba_cfg))
     jamba_orders = [{"attn_chunk": 512, "ssm": dataclasses.replace(jamba_cfg.ssm, chunk_size=64)},
                     {"ssm": dataclasses.replace(jamba_cfg.ssm, chunk_size=256)}]
-    jamba_counts, _ = phase_serve("12", "jamba-v0.1-52b",
-                                  {"ssm_scan": n_mamba * (1 + SERVE_G),
-                                   "flash_attention": jamba_cfg.hybrid_block_layers - n_mamba},
-                                  jamba_orders, layers=jamba_cfg.hybrid_block_layers,
-                                  why="its 32 layers are 104 GB of bf16")
+    jamba_counts, jamba_res = phase_serve("12", "jamba-v0.1-52b",
+                                          {"ssm_scan": n_mamba * (1 + SERVE_G),
+                                           "ssm_scan_fused": n_mamba * (1 + SERVE_G),
+                                           "flash_attention": jamba_cfg.hybrid_block_layers - n_mamba},
+                                          jamba_orders, layers=jamba_cfg.hybrid_block_layers,
+                                          why="its 32 layers are 104 GB of bf16")
+    print(f"  jamba-v0.1-52b serving with the fused scan: prefill {jamba_res['prefill_s']:.3f} s, peak "
+          f"{jamba_res['peak_gib']:.1f} GiB (the TPU-signature scan over formed decay and bx, "
+          f"PERF.md: 0.592 s, 45.8 GiB)")
     # 53 GB of float32 weights: batch 1 keeps the plain path under 60 GiB
     check_float32("jamba-v0.1-52b", 1, layers=jamba_cfg.hybrid_block_layers)
     measured = phase_cnn_step()
@@ -1755,8 +1921,8 @@ def main() -> None:
 
     # each kernel's launches on the path that runs it: ternarize on the
     # ternary trainer run, topk_mask on the topk run, wkv on rwkv6 serving,
-    # ssm_scan on jamba serving, the copy probe on the calibration, the
-    # others (dequantize among them) on the int8 trainer run
+    # ssm_scan on jamba serving (all on the fused route), the copy probe on
+    # the calibration, the others (dequantize among them) on the int8 trainer run
     paths = {"ternarize_2d": ternary_counts, "topk_mask_2d": topk_counts,
              "wkv": rwkv_counts, "ssm_scan": jamba_counts, "probe_copy_2d": calib_counts}
     for row in rows:

@@ -10,8 +10,12 @@ the H100's dense bf16 rate; ``chip_smoke.py`` prints the same question for
 stablelm-3b at the MFU its measured trainer step reaches.  The larger
 models (jamba-v0.1-52b, command-r-35b, deepseek-coder-33b, deepseek-v2-236b,
 arctic-480b: 60 GB to 900 GB of bf16 weights) do not fit one card with
-their optimizer state: their rows price a replica a GPU all the same, as
-the reference's table does.
+their optimizer state, yet their rows here price one replica a GPU all the
+same: a layout the port cannot run.  The reference's table
+(``examples/whatif_tpu.py``) prices another layout for every model it
+lists: ``tpu_whatif``'s default 16-way data-parallel group, the other chips
+in a model-parallel group that shards the compute and the gradients
+(16-way on 256 chips in one pod, 8-way when they are two pods).
 
 Run:  PYTHONPATH=src python examples/torch_whatif_h100.py
 """

@@ -604,7 +604,11 @@ def h100_whatif(cfg, shape, *, n_gpus: int = 64, gpus_per_node: int = 8,
     rate (``timeline.from_transformer``'s default), adds by ``addest``
     (``AddEst.h100()`` by default, or one measured on the card).  Inside
     one node the ring runs on NVLink; beyond it, the hierarchical
-    all-reduce runs its cross-node stage on InfiniBand.
+    all-reduce runs its cross-node stage on InfiniBand.  The simulator
+    sees exactly the dp ranks of the all-reduce: a node holds
+    ``gpus_per_node // mp`` of them, or, once the model-parallel group
+    fills a node or spans several, each dp rank is a node group of its own
+    (``tpu_whatif``'s ``n_workers = dp × n_pods``).
     """
     from repro_torch.core.timeline import from_transformer
     dp = data_parallel or n_gpus
@@ -614,7 +618,7 @@ def h100_whatif(cfg, shape, *, n_gpus: int = 64, gpus_per_node: int = 8,
     # per-replica gradient shard: model-parallel shards gradients mp-ways
     tl = GradTimeline(tl.name, tl.ready_times,
                       tuple(s / mp for s in tl.sizes), tl.t_back, tl.t_batch)
-    n_nodes = max(n_gpus // gpus_per_node, 1)
+    n_nodes = dp if mp >= gpus_per_node else max(n_gpus // gpus_per_node, 1)
     return simulate(tl, n_workers=dp, bandwidth=nvlink_gbps * GBPS,
                     transport=transport, addest=addest or AddEst.h100(),
                     compression_ratio=compression_ratio,

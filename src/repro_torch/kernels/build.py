@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("quantize.cu", "fused_add.cu", "flash_attn.cu", "flash_attn_sm90.cu", "topk_mask.cu",
-           "wkv.cu", "wkv_sm90.cu", "ssm_scan.cu", "probe_copy.cu")
+           "wkv.cu", "wkv_sm90.cu", "ssm_scan.cu", "ssm_scan_sm90.cu", "probe_copy.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -44,6 +44,7 @@ _SIGNATURES = {
     "repro_wkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P],
     "repro_wkv_chunked_f32": [_P] * 8 + [_I] * 5 + [_L] * 3 + [_P],
     "repro_ssm_scan": [_P] * 6 + [_I] * 5 + [_L] * 10 + [_P],
+    "repro_ssm_scan_fused": [_P] * 8 + [_I] * 5 + [_L] * 3 + [_P],
 }
 
 _lock = threading.Lock()
@@ -56,7 +57,7 @@ launch_counts: Dict[str, int] = {"quantize_int8_2d": 0, "ternarize_2d": 0,
                                  "topk_mask_2d": 0, "wkv": 0, "ssm_scan": 0,
                                  "dequantize_int8_2d": 0, "probe_copy_2d": 0}
 # launches of a kernel's second route, counted in launch_counts as well
-route_counts: Dict[str, int] = {"wkv_chunked": 0}
+route_counts: Dict[str, int] = {"wkv_chunked": 0, "ssm_scan_fused": 0}
 
 
 def reset_launch_counts() -> None:

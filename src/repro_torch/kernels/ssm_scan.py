@@ -15,6 +15,16 @@ own dataflow.  The CUDA kernel in ``csrc/ssm_scan.cu`` takes any S >= 0
 ``chunk``.  It reads decay and bx through their strides, so the model's
 (B, S, d_inner, n) tensors are passed as ``transpose(2, 3)`` views and
 never copied.
+
+``ssm_scan_fused`` is the same scan with the discretisation inside it, in
+the model's layout: dt (B, S, d_inner) f32, x (B, S, d_inner) f32 or bf16,
+b_t and c_t (B, S, n) f32, a (d_inner, n) f32 and h0 (B, d_inner, n) f32
+-> y (B, S, d_inner) f32, h (B, d_inner, n) f32, where the scan above
+takes decay = exp(dt * a) and bx = dt * x * b_t formed over (B, S, d_inner,
+n).  ``ssm_scan_fused_plain`` forms them exactly as the Mamba mixer does and
+runs ``ssm_scan_plain``; the CUDA kernel in ``csrc/ssm_scan_sm90.cu`` forms
+them in registers and never writes them (same range: any S >= 0, any
+d_inner, n up to 32).
 """
 from __future__ import annotations
 
@@ -92,3 +102,71 @@ def ssm_scan(decay, bx, c_t, h0, chunk: int = 128) -> Tuple[torch.Tensor, torch.
     build.check(code, "repro_ssm_scan")
     build.launch_counts["ssm_scan"] += 1
     return y, h_out
+
+
+def discretise(dt, x, b_t, a) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba mixer's formation of the scan's inputs, as the reference
+    writes it: decay = exp(dt * a) and bx = (dt * x) * b over (B, S,
+    d_inner, n) in float32 (exp in place: the two are the mixer's largest
+    tensors).  Differentiable."""
+    decay = (dt[..., None] * a).exp_()
+    bx = (dt * x.float())[..., None] * b_t[:, :, None, :]
+    return decay, bx
+
+
+def ssm_scan_fused_plain(dt, x, b_t, c_t, a, h0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``discretise``, then ``ssm_scan_plain`` in the model's layout.
+    Returns (y (B, S, d_inner), h (B, d_inner, n))."""
+    decay, bx = discretise(dt, x, b_t, a)
+    y, h = ssm_scan_plain(decay.transpose(2, 3), bx.transpose(2, 3), c_t, h0.transpose(1, 2))
+    return y, h.transpose(1, 2)
+
+
+def _check_fused(dt, x, b_t, c_t, a, h0) -> None:
+    if dt.dim() != 3 or x.shape != dt.shape:
+        raise ValueError(f"dt and x must share one (B, S, d_inner) shape, got "
+                         f"{tuple(dt.shape)} and {tuple(x.shape)}")
+    B, S, di = dt.shape
+    if b_t.dim() != 3 or tuple(b_t.shape[:2]) != (B, S) or c_t.shape != b_t.shape:
+        raise ValueError(f"b_t and c_t must share one ({B}, {S}, n) shape, got "
+                         f"{tuple(b_t.shape)} and {tuple(c_t.shape)}")
+    n = b_t.shape[2]
+    if tuple(a.shape) != (di, n) or tuple(h0.shape) != (B, di, n):
+        raise ValueError(f"a must be {(di, n)} and h0 {(B, di, n)}, got {tuple(a.shape)} and "
+                         f"{tuple(h0.shape)}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    for name, t in (("dt", dt), ("b_t", b_t), ("c_t", c_t), ("a", a), ("h0", h0)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+
+
+def ssm_scan_fused(dt, x, b_t, c_t, a, h0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan with the discretisation inside (see the module
+    docstring): the plain version on CPU tensors, the CUDA kernel of
+    ``csrc/ssm_scan_sm90.cu`` on CUDA tensors.  h comes back contiguous in
+    the model's (B, d_inner, n) layout."""
+    _check_fused(dt, x, b_t, c_t, a, h0)
+    if not dt.is_cuda:
+        return ssm_scan_fused_plain(dt, x, b_t, c_t, a, h0)
+    B, S, di = dt.shape
+    n = b_t.shape[2]
+    if n > MAX_STATE:
+        raise ValueError(f"d_state must be at most {MAX_STATE}, got {n}")
+    if B > 65535:
+        raise ValueError(f"batch must be at most 65535, got {B}")
+    if any(t.device != dt.device for t in (x, b_t, c_t, a, h0)):
+        raise ValueError("all inputs must lie on one device")
+    dt, x, b_t, c_t, a = (t.contiguous() for t in (dt, x, b_t, c_t, a))
+    y = torch.empty((B, S, di), dtype=torch.float32, device=dt.device)
+    h = torch.empty((B, di, n), dtype=torch.float32, device=dt.device)
+    lib = build.library()
+    with torch.cuda.device(dt.device):
+        code = lib.repro_ssm_scan_fused(dt.data_ptr(), x.data_ptr(), b_t.data_ptr(),
+                                        c_t.data_ptr(), a.data_ptr(), h0.data_ptr(), y.data_ptr(),
+                                        h.data_ptr(), int(x.dtype == torch.bfloat16), B, S, n, di,
+                                        *h0.stride(), build.current_stream(dt.device))
+    build.check(code, "repro_ssm_scan_fused")
+    build.launch_counts["ssm_scan"] += 1
+    build.route_counts["ssm_scan_fused"] += 1
+    return y, h

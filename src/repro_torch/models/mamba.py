@@ -24,6 +24,16 @@ views (JAX pays two transposes of the largest tensors of the mixer there).
 Its gradient is ``_ssm_scan_chunked_fused_y``'s, recomputed in backward,
 as ``_ssm_cv_bwd`` does.
 
+On the card the mixer's scan also takes the discretisation in (a divergence
+of dataflow, not of result): unless ``cfg.bf16_stream`` is on, the kernel
+path hands dt, x, B, C and A to ``kernels.ssm_scan.ssm_scan_fused``
+(``_SSMFusedFn``), which forms exp(dt·A) and dt·x·B in registers, so the
+two (B, S, d_inner, d_state) float32 tensors that JAX forms before its
+kernel are never written.  Backward forms them again from the saved inputs
+and takes the same recompute's gradient.  Under ``bf16_stream`` the
+reference rounds them to bf16 before the scan, so that path keeps
+``_SSMKernelFn`` and the TPU-signature kernel.
+
 ``dt_bias``, ``a_log`` and ``d_skip`` are float32 whatever ``cfg.dtype``
 is.  ``softplus`` is ``torch.nn.functional.softplus``, which returns x for
 x > 20 where JAX computes ``logaddexp(x, 0)``: the two differ by less than
@@ -38,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
+from repro_torch.kernels.ssm_scan import discretise, ssm_scan, ssm_scan_fused, ssm_scan_plain
 from repro_torch.models.attention import use_pallas
 from repro_torch.models.layers import Params, _device_of, dense_init, torch_dtype
 
@@ -148,6 +158,30 @@ class _SSMKernelFn(torch.autograd.Function):
         return (*grads, None)
 
 
+class _SSMFusedFn(torch.autograd.Function):
+    """The fused kernel forward (discretisation inside the scan) with the
+    gradients of ``discretise`` followed by ``_ssm_scan_chunked_fused_y``,
+    both recomputed in backward.  Saves dt, x, b_t, c_t, a and h0, never
+    decay or bx."""
+
+    @staticmethod
+    def forward(ctx, dt, x, b_t, c_t, a, h0, chunk):
+        y, h = ssm_scan_fused(dt, x, b_t, c_t, a, h0)
+        ctx.save_for_backward(dt, x, b_t, c_t, a, h0)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, g_y, g_h):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        dt, x, b_t, c_t, a, h0 = inputs
+        with torch.enable_grad():
+            decay, bx = discretise(dt, x, b_t, a)
+            y, h = _ssm_scan_chunked_fused_y(decay, bx, c_t, h0, ctx.chunk)
+        grads = torch.autograd.grad((y, h), inputs, (g_y, g_h), allow_unused=True)
+        return (*grads, None)
+
+
 # ---------------------------------------------------------------------------
 # mixer
 # ---------------------------------------------------------------------------
@@ -163,6 +197,23 @@ def _depthwise_conv(x, w, b, prev=None):
     xp = torch.cat([prev, x], dim=1)
     y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(d_conv)) + b
     return y, xp[:, -(d_conv - 1):]
+
+
+def _scan_formed(cfg: ModelConfig, kernel: bool, decay, bx, c_t, h0):
+    """The scan over the formed decay and bx (rounded to bf16 under
+    ``bf16_stream``): the TPU-signature kernel or one of the three plain
+    scans.  Returns (y (B, S, di), h_final)."""
+    if cfg.bf16_stream:
+        decay, bx, c_t, h0 = (t.to(torch.bfloat16) for t in (decay, bx, c_t, h0))
+    if kernel:
+        return _SSMKernelFn.apply(decay, bx, c_t, h0, cfg.ssm.chunk_size)
+    if cfg.mamba_scan_impl == "seq":
+        return _ssm_scan_seq_fused_y(decay, bx, c_t, h0)
+    if cfg.mamba_fused_y:
+        return _ssm_scan_chunked_fused_y(decay, bx, c_t, h0, cfg.ssm.chunk_size)
+    states, h_final = _ssm_scan_chunked(decay, bx, h0, cfg.ssm.chunk_size)
+    del decay, bx
+    return torch.einsum("bsdn,bsn->bsd", states, c_t), h_final
 
 
 def mamba_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -183,23 +234,13 @@ def mamba_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig,
     c_t = bcdt[..., dt_rank + n:].float()
 
     a = -torch.exp(params["a_log"])                      # (di, n)
-    # the two (B, S, di, n) tensors are the largest of the mixer: exp in place
-    decay = (dt[..., None] * a).exp_()
-    bx = (dt * xs.float())[..., None] * b_t[:, :, None, :]
     h0 = (state["ssm"] if state is not None
           else torch.zeros((B, di, n), dtype=torch.float32, device=x.device))
-    if cfg.bf16_stream:
-        decay, bx, c_t, h0 = (t.to(torch.bfloat16) for t in (decay, bx, c_t, h0))
-    if use_pallas(cfg, x):
-        y, h_final = _SSMKernelFn.apply(decay, bx, c_t, h0, cfg.ssm.chunk_size)
-    elif cfg.mamba_scan_impl == "seq":
-        y, h_final = _ssm_scan_seq_fused_y(decay, bx, c_t, h0)
-    elif cfg.mamba_fused_y:
-        y, h_final = _ssm_scan_chunked_fused_y(decay, bx, c_t, h0, cfg.ssm.chunk_size)
+    kernel = use_pallas(cfg, x)
+    if kernel and not cfg.bf16_stream:
+        y, h_final = _SSMFusedFn.apply(dt, xs, b_t, c_t, a, h0, cfg.ssm.chunk_size)
     else:
-        states, h_final = _ssm_scan_chunked(decay, bx, h0, cfg.ssm.chunk_size)
-        del decay, bx
-        y = torch.einsum("bsdn,bsn->bsd", states, c_t)
+        y, h_final = _scan_formed(cfg, kernel, *discretise(dt, xs, b_t, a), c_t, h0)
     y = y.float() + params["d_skip"] * xs.float()
     y = y.to(x.dtype) * F.silu(z)
     out = y @ params["w_out"]

@@ -46,6 +46,9 @@ from repro_torch.kernels import ssm_scan
 y, h = ssm_scan.ssm_scan(torch.rand(1, 5, 16, 8), torch.randn(1, 5, 16, 8), torch.randn(1, 5, 16),
                          torch.zeros(1, 16, 8))
 assert y.shape == (1, 5, 8) and h.shape == (1, 16, 8)
+y, h = ssm_scan.ssm_scan_fused(torch.rand(1, 5, 8), torch.randn(1, 5, 8), torch.randn(1, 5, 16),
+                               torch.randn(1, 5, 16), -torch.rand(8, 16), torch.zeros(1, 8, 16))
+assert y.shape == (1, 5, 8) and h.shape == (1, 8, 16)
 from repro_torch.launch import serve
 from repro_torch.models import jamba, mamba, moe, rwkv
 from repro_torch.configs import get_config
@@ -121,7 +124,7 @@ def test_every_subpackage_is_a_package_and_sources_ship():
     assert {"configs", "kernels", "models", "optim", "data", "parallel", "core", "launch"} <= names
     assert {p.name for p in (PKG / "kernels" / "csrc").glob("*.cu")} == {
         "quantize.cu", "fused_add.cu", "flash_attn.cu", "flash_attn_sm90.cu", "topk_mask.cu",
-        "wkv.cu", "wkv_sm90.cu", "ssm_scan.cu", "probe_copy.cu"}
+        "wkv.cu", "wkv_sm90.cu", "ssm_scan.cu", "ssm_scan_sm90.cu", "probe_copy.cu"}
     from repro_torch.kernels import build
     assert set(build.SOURCES) == {p.name for p in (PKG / "kernels" / "csrc").glob("*.cu")}
     assert (PKG / "launch" / "serve.py").exists() and (PKG / "models" / "rwkv.py").exists()
@@ -129,5 +132,6 @@ def test_every_subpackage_is_a_package_and_sources_ship():
         assert (PKG / "models" / name).exists(), name
     assert (PKG / "kernels" / "ssm_scan.py").exists() and (PKG / "configs" / "jamba_v0_1_52b.py").exists()
     assert build.launch_counts.get("ssm_scan") == 0 and "repro_ssm_scan" in build._SIGNATURES
-    assert build.route_counts == {"wkv_chunked": 0} and "repro_wkv_chunked_f32" in build._SIGNATURES
+    assert build.route_counts == {"wkv_chunked": 0, "ssm_scan_fused": 0}
+    assert "repro_wkv_chunked_f32" in build._SIGNATURES and "repro_ssm_scan_fused" in build._SIGNATURES
     assert "repro_torch/kernels/_build/" in (REPO / ".gitignore").read_text()

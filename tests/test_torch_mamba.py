@@ -1,9 +1,12 @@
 """The Mamba mixer in the port against the JAX package on the same numpy
 inputs: the selective scan (``kernels.ssm_scan``: the plain recurrence
 that CPU tensors run, against ``ssm_scan_pallas`` in interpret mode and
-against ``mamba._ssm_scan_chunked``), the three plain scan variants against
+against ``mamba._ssm_scan_chunked``), the fused scan with the
+discretisation inside (``ssm_scan_fused_plain`` against JAX's formation
+followed by ``ssm_scan_pallas``), the three plain scan variants against
 their JAX twins, and ``mamba_mixer`` / ``mamba_decode`` with their
-gradients (jamba-v0.1-52b smoke, f32)."""
+gradients (jamba-v0.1-52b smoke, f32), on the plain routes and on the
+fused kernel's autograd Function."""
 import dataclasses
 
 import jax
@@ -113,6 +116,73 @@ def test_ssm_scan_wrapper_checks_its_inputs():
     assert y.dtype == torch.float32 and build.launch_counts["ssm_scan"] == 0
 
 
+def _fused_inputs(B, S, di, n, seed):
+    """dt (B, S, di) as the mixer's softplus gives it, x, b_t, c_t, a =
+    -exp(a_log) with the S4D-real a_log, h0 in the model layout."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, di)) * 0.5 - 3.0)).astype(np.float32)
+    x = rng.standard_normal((B, S, di)).astype(np.float32)
+    b_t = (rng.standard_normal((B, S, n)) * 0.5).astype(np.float32)
+    c_t = (rng.standard_normal((B, S, n)) * 0.5).astype(np.float32)
+    a = -np.tile(np.arange(1, n + 1, dtype=np.float32), (di, 1))
+    h0 = (rng.standard_normal((B, di, n)) * 0.1).astype(np.float32)
+    return dt, x, b_t, c_t, a, h0
+
+
+@pytest.mark.parametrize("S,chunk", [(128, 64), (1, 1)])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_ssm_scan_fused_plain_matches_jax_formation_and_pallas(S, chunk, x_dtype):
+    """``ssm_scan_fused_plain`` (and the wrapper on CPU tensors) against
+    JAX's formation (src/repro/models/mamba.py) followed by
+    ``ssm_scan_pallas`` in interpret mode, with ``_ssm_pallas_cv``'s
+    transposes; x in float32 and bf16, S = 1 a decode step."""
+    dt, x, b_t, c_t, a, h0 = _fused_inputs(2, S, 128, 16, S + 11)
+    jdt, jb, jc, ja, jh = map(to_jax, (dt, b_t, c_t, a, h0))
+    jx = to_jax(x, getattr(jnp, x_dtype))
+    decay = jnp.exp(jdt[..., None] * ja)
+    bx = (jdt * jx.astype(jnp.float32))[..., None] * jb[:, :, None, :]
+    y_ref, h_ref = ssm_scan_pallas(decay.transpose(0, 1, 3, 2), bx.transpose(0, 1, 3, 2), jc,
+                                   jh.transpose(0, 2, 1), chunk=chunk, interpret=True)
+    h_ref = h_ref.transpose(0, 2, 1)
+    args = (to_torch(dt), to_torch(x, getattr(torch, x_dtype)), to_torch(b_t), to_torch(c_t),
+            to_torch(a), to_torch(h0))
+    build.reset_launch_counts()
+    for y_t, h_t in (tss.ssm_scan_fused_plain(*args), tss.ssm_scan_fused(*args)):
+        assert tuple(y_t.shape) == (2, S, 128) and tuple(h_t.shape) == (2, 128, 16)
+        assert y_t.dtype == h_t.dtype == torch.float32
+        np.testing.assert_allclose(np32(y_t), np.asarray(y_ref), **SCAN_TOL)
+        np.testing.assert_allclose(np32(h_t), np.asarray(h_ref), **SCAN_TOL)
+    assert build.launch_counts["ssm_scan"] == build.route_counts["ssm_scan_fused"] == 0
+
+
+def test_ssm_scan_fused_forms_what_the_mixer_forms():
+    """The plain fused scan is the TPU-signature scan over ``discretise``'s
+    tensors, bit for bit, and two calls that carry h equal one."""
+    dt, x, b_t, c_t, a, h0 = map(to_torch, _fused_inputs(1, 96, 64, 8, 5))
+    decay, bx = tss.discretise(dt, x, b_t, a)
+    want = tm._ssm_scan_seq_fused_y(decay, bx, c_t, h0)
+    got = tss.ssm_scan_fused(dt, x, b_t, c_t, a, h0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    y1, h1 = tss.ssm_scan_fused(dt[:, :40], x[:, :40], b_t[:, :40], c_t[:, :40], a, h0)
+    y2, h2 = tss.ssm_scan_fused(dt[:, 40:], x[:, 40:], b_t[:, 40:], c_t[:, 40:], a, h1)
+    np.testing.assert_allclose(np32(torch.cat([y1, y2], dim=1)), np32(got[0]), **SCAN_TOL)
+    np.testing.assert_allclose(np32(h2), np32(got[1]), **SCAN_TOL)
+    empty_y, same_h = tss.ssm_scan_fused(dt[:, :0], x[:, :0], b_t[:, :0], c_t[:, :0], a, h0)
+    assert tuple(empty_y.shape) == (1, 0, 64) and torch.equal(same_h, h0)
+
+
+def test_ssm_scan_fused_wrapper_checks_its_inputs():
+    dt, x, b_t, c_t, a, h0 = map(to_torch, _fused_inputs(1, 4, 8, 16, 0))
+    bad = [(dt[..., :4], x, b_t, c_t, a, h0), (dt, x, b_t[..., :4], c_t, a, h0),
+           (dt, x, b_t, c_t, a.t(), h0), (dt, x, b_t, c_t, a, h0.transpose(1, 2)),
+           (dt.double(), x, b_t, c_t, a, h0), (dt, x.half(), b_t, c_t, a, h0),
+           (dt, x, b_t.bfloat16(), c_t, a, h0), (dt, x, b_t, c_t, a, h0.bfloat16())]
+    for args in bad:
+        with pytest.raises(ValueError):
+            tss.ssm_scan_fused(*args)
+
+
 @pytest.mark.parametrize("variant,S,chunk", [
     ("chunked", 64, 16), ("chunked", 40, 16), ("fused_y", 64, 16), ("fused_y", 40, 16),
     ("seq", 48, 16),
@@ -152,14 +222,24 @@ def _mixer_setup(seed=0, S=64):
     return p_j, p_t, x, w
 
 
+def _count_calls(monkeypatch, fn_class):
+    calls = []
+    orig = fn_class.apply
+    monkeypatch.setattr(fn_class, "apply", lambda *a: calls.append(a) or orig(*a))
+    return calls
+
+
 @pytest.mark.parametrize("mode", ["assoc", "fused_y", "seq", "always"])
-def test_mamba_mixer_output_and_gradients_match_jax(mode):
+def test_mamba_mixer_output_and_gradients_match_jax(mode, monkeypatch):
     """'always': JAX runs its Pallas kernel in interpret mode (S = 64 is a
-    multiple of the chunk, d_inner = 256 of 128); the port runs its
-    kernel's autograd Function, whose CPU forward is the plain recurrence
-    and whose backward is the fused-y recompute."""
+    multiple of the chunk, d_inner = 256 of 128); the port runs the fused
+    kernel's autograd Function (``_SSMFusedFn``), whose CPU forward is the
+    plain formation and recurrence and whose backward forms decay and bx
+    again and takes the fused-y recompute's gradients."""
     cj, ct = _mixer_cfgs(mode)
     p_j, p_t, x, w = _mixer_setup()
+    fused_calls = _count_calls(monkeypatch, tm._SSMFusedFn)
+    kernel_calls = _count_calls(monkeypatch, tm._SSMKernelFn)
 
     def f_j(p, xx):
         out, st = jm.mamba_mixer(p, xx, cj)
@@ -171,6 +251,7 @@ def test_mamba_mixer_output_and_gradients_match_jax(mode):
     leaves = [p_t[k].requires_grad_(True) for k in PARAM_NAMES]
     out_t, st_t = tm.mamba_mixer(p_t, xt, ct)
     grads = torch.autograd.grad(torch.sum(out_t * to_torch(w)), [xt] + leaves)
+    assert len(fused_calls) == (mode == "always") and not kernel_calls
     np.testing.assert_allclose(np32(out_t), np.asarray(out_j), **MIXER_TOL)
     np.testing.assert_allclose(np32(st_t["ssm"]), np.asarray(st_j["ssm"]), **MIXER_TOL)
     np.testing.assert_array_equal(np32(st_t["conv"]), np.asarray(st_j["conv"]))
@@ -189,7 +270,20 @@ def test_mamba_decode_with_a_state_matches_jax():
     """Prefill 16 tokens, then three one-token steps that carry (conv, ssm):
     each step's output and state equal JAX's, and the last output equals the
     mixer over all 19 tokens."""
-    cj, ct = _mixer_cfgs("assoc")
+    _decode_with_a_state("assoc")
+
+
+def test_mamba_decode_with_a_state_matches_jax_on_the_fused_route(monkeypatch):
+    """The same with use_pallas='always': the port's prefill and every
+    one-token step (S = 1, h0 the carried state) run ``_SSMFusedFn``."""
+    calls = _count_calls(monkeypatch, tm._SSMFusedFn)
+    _decode_with_a_state("always")
+    assert len(calls) == 5 and [c[0].shape[1] for c in calls] == [19, 16, 1, 1, 1]
+    assert all(c[5].abs().sum() > 0 for c in calls[2:])        # a carried state, not zeros
+
+
+def _decode_with_a_state(mode):
+    cj, ct = _mixer_cfgs(mode)
     p_j, p_t, x, _ = _mixer_setup(seed=3, S=19)
 
     @jax.jit
@@ -220,24 +314,45 @@ def test_mamba_decode_with_a_state_matches_jax():
 
 
 def test_kernel_dispatch_and_bf16_stream(monkeypatch):
-    """On a CPU tensor only 'always' takes the kernel's autograd Function;
-    under bf16_stream the three streams are bf16 and the state stays f32."""
+    """On a CPU tensor only 'always' takes a kernel's autograd Function: the
+    fused one (``_SSMFusedFn``) for float32 streams, the TPU-signature one
+    (``_SSMKernelFn``) under bf16_stream, where the three streams are bf16
+    and the state stays f32."""
     _, ct = _mixer_cfgs("assoc")
     _, p_t, x, _ = _mixer_setup(seed=5, S=32)
-    calls = []
-    orig = tm._SSMKernelFn.apply
-    monkeypatch.setattr(tm._SSMKernelFn, "apply", lambda *a: calls.append(a) or orig(*a))
+    calls = _count_calls(monkeypatch, tm._SSMKernelFn)
+    fused_calls = _count_calls(monkeypatch, tm._SSMFusedFn)
     outs = {}
     for mode in ("always", "never", "auto"):
         outs[mode], _ = tm.mamba_mixer(p_t, to_torch(x), ct.replace(use_pallas=mode))
-    assert len(calls) == 1
+    assert len(fused_calls) == 1 and not calls
+    assert [t.dtype for t in fused_calls[0][:6]] == [torch.float32] * 6
     for mode in ("never", "auto"):
         np.testing.assert_allclose(np32(outs[mode]), np32(outs["always"]), **MIXER_TOL)
-    calls.clear()
+    fused_calls.clear()
     out, st = tm.mamba_mixer(p_t, to_torch(x), ct.replace(use_pallas="always", bf16_stream=True))
+    assert len(calls) == 1 and not fused_calls
     assert [t.dtype for t in calls[0][:4]] == [torch.bfloat16] * 4
     assert st["ssm"].dtype == torch.float32 and bool(torch.isfinite(out).all())
     np.testing.assert_allclose(np32(out), np32(outs["always"]), rtol=5e-2, atol=5e-2)
+
+
+def test_fused_route_saves_no_state_sized_tensor():
+    """Under autograd the fused route keeps nothing of (B, S, d_inner,
+    d_state) for backward; the plain route keeps decay and bx."""
+    _, ct = _mixer_cfgs("assoc")
+    _, p_t, x, _ = _mixer_setup(seed=6, S=32)
+    di, _, n, _ = tm.dims(ct)
+    shapes = {}
+    for mode in ("always", "never"):
+        saved = []
+        xt = to_torch(x).requires_grad_(True)
+        with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(tuple(t.shape)) or t,
+                                                      lambda t: t):
+            tm.mamba_mixer(p_t, xt, ct.replace(use_pallas=mode))
+        shapes[mode] = saved
+    big = (2, 32, di, n)
+    assert big not in shapes["always"] and big in shapes["never"]
 
 
 def test_state_spec_and_dims_match_jax():

@@ -202,6 +202,32 @@ def test_h100_whatif_equals_the_reference_building_blocks(case):
     assert 0.0 < ours.scaling_factor <= 1.0
 
 
+def _hand_layout_h100(arch, s, *, n_gpus, dp, ib_gbps=400.0):
+    """A model-parallel group of n_gpus / dp >= 8 GPUs fills one node or
+    more, so the all-reduce has one rank in each of dp node groups: dp
+    workers, dp pods of one GPU, the cross-pod stage on InfiniBand."""
+    mp = n_gpus // dp
+    tl = jtl.from_transformer(jget_config(arch), jbase.InputShape(*s), mfu=0.4,
+                              chip_flops=H100_FLOPS, n_chips_compute=mp, grad_dtype_bytes=2)
+    tl = jtl.GradTimeline(tl.name, tl.ready_times, tuple(x / mp for x in tl.sizes),
+                          tl.t_back, tl.t_batch)
+    return jsim.simulate(tl, n_workers=dp, bandwidth=3600.0 * JGBPS, transport="ideal",
+                         addest=JAddEst.from_bandwidth(3.35e12, 2.3e-6),
+                         topology="hierarchical", n_pods=dp, dcn_bandwidth=ib_gbps * JGBPS)
+
+
+@pytest.mark.parametrize("n_gpus,dp", [(64, 4), (256, 16), (64, 8)])
+def test_h100_whatif_model_parallel_across_nodes_sees_dp_ranks(n_gpus, dp):
+    """mp = n_gpus / dp >= gpus_per_node: each dp rank is a node group of
+    its own, as the reference's tpu_whatif lays out n_workers = dp x n_pods
+    (mp 16 with dp 4 priced 0.6389 against this layout's 0.7184 before)."""
+    shape = tbase.InputShape(*SHAPES[0])
+    ours = twhatif.h100_whatif(get_config("command-r-35b"), shape, n_gpus=n_gpus,
+                               data_parallel=dp)
+    _same_result(ours, _hand_layout_h100("command-r-35b", SHAPES[0], n_gpus=n_gpus, dp=dp))
+    assert 0.0 < ours.scaling_factor <= 1.0
+
+
 def test_h100_whatif_defaults_are_the_data_sheet_platform():
     cfg, shape = get_config("stablelm-3b"), tbase.InputShape(*SHAPES[0])
     base = twhatif.h100_whatif(cfg, shape)

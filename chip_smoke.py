@@ -73,7 +73,18 @@ through their entry points:
   and plain runs agree bit for bit) and arctic-480b (2 layers) cut in depth,
   each held against the plain path's own spread and under 75 GiB of peak
   memory.  The flash kernel is held to its plain version at those decoders'
-  head layouts in phase 2c.
+  head layouts in phase 2c;
+- last (phases 31-36), the production mesh's code paths: the step of
+  ``launch/specs.make_step_fn`` on DTensors of a one-rank NCCL
+  ``DeviceMesh``, stablelm-3b at full width and depth on the kernels and on
+  the plain versions, beside the roofline terms ``utils/step_analysis``
+  reads from the same step; ``python -m repro_torch.launch.dryrun`` in
+  subprocesses on the host's cores (one architecture of each family, every
+  shape, both production meshes, with and without ``--production``) and
+  ``benchmarks/torch_roofline.py``'s table of it; ``launch.train.main`` on
+  deepseek-coder-33b (4 layers), internvl2-2b and whisper-base (full depth),
+  int8, against plain runs; and one full-width MLA block of
+  deepseek-v2-236b, forward and backward in bf16, against float64.
 
 Launch counters, reset right before each run and read right after, show
 that the run went through the kernels.
@@ -115,6 +126,7 @@ sys.path.insert(0, str(REPO / "src"))
 
 import torch.nn.functional as F  # noqa: E402
 
+from benchmarks import torch_roofline as roofline  # noqa: E402
 from examples import torch_measured_whatif as whatif  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import INPUT_SHAPES, CommConfig, InputShape, get_config  # noqa: E402
@@ -130,7 +142,11 @@ from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.kernels import topk_mask as tm  # noqa: E402
 from repro_torch.kernels import wkv as wk  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import dryrun, serve, train  # noqa: E402
+from repro_torch.launch import specs as specs_lib  # noqa: E402
+from repro_torch.launch.mesh import HBM_BW as MESH_HBM_BW  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16, make_smoke_mesh  # noqa: E402
+from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import mamba as mb  # noqa: E402
 from repro_torch.models.cnn import CNN_NAMES, CNNConfig, cnn_api  # noqa: E402
 from repro_torch.models.jamba import block_layout as jamba_layout  # noqa: E402
@@ -427,6 +443,8 @@ def phase_flash() -> dict:
                 VLM_PREFIX + SERVE_P, 128, seed=1302)
     flash_shape("command-r-35b serving prefill", SERVE_B, 64, 8, SERVE_P, 128, seed=1303)
     flash_shape("deepseek-coder-33b serving prefill", SERVE_B, 56, 8, SERVE_P, 128, seed=1304)
+    # whisper-base's decoder self-attention in phase 35's trainer: 8 heads of 64, MHA
+    flash_shape("whisper-base trainer (decoder self-attention)", 1, 8, 8, 4096, 64, seed=1305)
     return row
 
 
@@ -1830,6 +1848,288 @@ def phase_families() -> dict:
     check(max(peaks.values()) <= 75.0, "a served model passed 75 GiB: cut its depth")
     return out
 
+# ---------------------------------------------------------------------------
+# phases 31-36: the specs' step on the card, the dry run, the trainers the
+# card had not run, MLA's backward
+# ---------------------------------------------------------------------------
+
+SPEC_STEPS, SPEC_PLAIN_STEPS = 3, 2
+
+
+def spec_step_run(cfg, shape: InputShape, mesh, batches: list, steps: int) -> dict:
+    """``specs.make_step_fn(api, "train", opt)`` for ``steps`` steps on
+    DTensors of the one-rank mesh, from the specs' placements of seed-0
+    parameters (phase 4's seed)."""
+    api = get_model(cfg)
+    opt = get_optimizer("adamw")
+    spec = specs_lib.train_step_spec(api, shape, mesh, opt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain = api.init(torch.Generator(device=DEV).manual_seed(0))
+    params = specs_lib.distribute(plain, spec.in_shardings[0], mesh)
+    state = specs_lib.distribute(opt.init(plain), spec.in_shardings[1], mesh)
+    del plain
+    step = specs_lib.make_step_fn(api, "train", opt)
+    losses, times = [], []
+    build.reset_launch_counts()
+    for i in range(steps):
+        batch = specs_lib.distribute(batches[i], spec.in_shardings[2], mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"].full_tensor()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = {**build.launch_counts, **build.route_counts}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, state
+    return {"losses": losses, "times": times, "counts": counts, "peak_gib": peak}
+
+
+def phase_specs_step(phase4: dict, card: str) -> dict:
+    """[31] ``launch/specs.make_step_fn`` on DTensors of a one-rank NCCL mesh:
+    stablelm-3b at full width and depth, S 4096, batch 1, on the kernels and
+    on the plain versions; beside it the roofline terms of the same step from
+    ``utils/step_analysis`` (the dry run's trace on meta shards)."""
+    cfg = get_config("stablelm-3b")
+    shape = InputShape("train_4k", 4096, 1, "train")
+    t_phase = time.perf_counter()
+    print(f"[31] the specs' train step on the card: stablelm-3b full width and depth "
+          f"({cfg.num_layers} layers), S {shape.seq_len}, batch 1, AdamW, DTensors on a one-rank "
+          f"NCCL DeviceMesh (make_smoke_mesh('cuda')); {SPEC_STEPS} steps on the kernels, "
+          f"{SPEC_PLAIN_STEPS} on use_pallas=never")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, device_id=DEV)
+    try:
+        mesh = make_smoke_mesh("cuda")
+        data = iter(SyntheticLM(cfg, shape, seed=0))
+        batches = [device_put_batch(next(data), DEV) for _ in range(SPEC_STEPS)]
+        kern = spec_step_run(cfg, shape, mesh, batches, SPEC_STEPS)
+        plain = spec_step_run(cfg.replace(use_pallas="never"), shape, mesh, batches,
+                              SPEC_PLAIN_STEPS)
+        t0 = time.perf_counter()
+        rec = dryrun.dryrun_cfg(cfg, shape, mesh)
+        trace_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    print(f"  kernels: losses {kern['losses']}, step times {[round(t, 4) for t in kern['times']]} s, "
+          f"peak {kern['peak_gib']:.1f} GiB; launches {kern['counts']}")
+    print(f"  plain:   losses {plain['losses']}, step times {[round(t, 4) for t in plain['times']]} s, "
+          f"peak {plain['peak_gib']:.1f} GiB")
+    check(all(math.isfinite(x) for x in kern["losses"] + plain["losses"]), "a loss is not finite")
+    for i in range(SPEC_PLAIN_STEPS):
+        rel = abs(kern["losses"][i] - plain["losses"][i]) / abs(plain["losses"][i])
+        print(f"  step {i}: kernels {kern['losses'][i]:.5f} vs plain {plain['losses'][i]:.5f} "
+              f"(rel diff {rel:.2e}, tolerance 2e-2: bf16 model)")
+        check(rel <= 2e-2, "the specs' step on the kernels and on the plain versions disagree")
+    want = cfg.num_layers * SPEC_STEPS * 2
+    check(kern["counts"]["flash_attention"] == want,
+          f"expected {want} flash launches (layers x steps x 2: forward and remat recompute)")
+    check(all(c == 0 for c in plain["counts"].values()), "the plain run launched a kernel")
+    off = [n for n, c in kern["counts"].items() if c and n != "flash_attention"]
+    check(not off, f"the specs' step launched kernels off its path: {off}")
+    step_s = statistics.median(kern["times"][1:])
+    tokens = shape.global_batch * shape.seq_len
+    ana = rec["analyzed"]
+    compute_s, memory_s = ana["flops"] / PEAK_FLOPS_BF16, ana["bytes"] / MESH_HBM_BW
+    mfu = flops.model_flops(cfg, shape) / step_s / PEAK_FLOPS_BF16
+    r4 = phase4["result"]
+    print(f"  median step {step_s:.4f} s (steps 1-{SPEC_STEPS - 1}), {tokens / step_s:.1f} tokens/s, "
+          f"first step {kern['times'][0]:.3f} s, peak {kern['peak_gib']:.1f} GiB; phase 4's trainer "
+          f"(plain tensors, int8 sync): {r4['median_step_s']:.4f} s")
+    print(f"  roofline of the same step (utils/step_analysis over the plain path, traced in "
+          f"{trace_s:.1f} s): {ana['flops']:.4e} FLOPs -> compute {compute_s:.4f} s at "
+          f"{PEAK_FLOPS_BF16:.3e} FLOP/s; {ana['bytes']:.4e} bytes -> memory {memory_s:.4f} s at "
+          f"{MESH_HBM_BW:.3e} B/s; temp {rec['memory']['temp_size_in_bytes'] / 2 ** 30:.2f} GiB; "
+          f"collectives {ana['collective_bytes']}")
+    print(f"  {card}: measured {step_s:.4f} s against compute {compute_s:.4f} s and memory "
+          f"{memory_s:.4f} s; MFU (6 N T / step / peak) {mfu:.4f}; traced FLOPs over the step "
+          f"{ana['flops'] / step_s / 1e12:.1f} TFLOP/s; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"kern": kern, "plain": plain, "rec": rec, "step_s": step_s, "mfu": mfu}
+
+
+# (arch, shape, multi_pod, production), the slowest first: one architecture
+# of each family on the 16x16 mesh as configured, every shape among them; on
+# the 2x16x16 mesh with the production flags, every shape for some of them.
+# About 1,000 s of the host's cores: rwkv6's prefill_32k alone takes 175 s
+# there, so that shape runs for internvl2-2b and whisper-base only
+DRYRUN_ARCHS = ["jamba-v0.1-52b", "rwkv6-1.6b", "deepseek-v2-236b", "moonshot-v1-16b-a3b",
+                "stablelm-3b", "whisper-base", "internvl2-2b"]
+DRYRUN_JOBS = ([(a, "train_4k", False, False) for a in DRYRUN_ARCHS]
+               + [(a, "train_4k", True, True) for a in ("moonshot-v1-16b-a3b", "stablelm-3b",
+                                                        "whisper-base", "internvl2-2b")]
+               + [("whisper-base", "prefill_32k", True, True),
+                  ("internvl2-2b", "prefill_32k", False, False)]
+               + [(a, s, False, False) for a in DRYRUN_ARCHS for s in ("decode_32k", "long_500k")]
+               + [(a, "decode_32k", True, True) for a in ("stablelm-3b", "moonshot-v1-16b-a3b",
+                                                          "jamba-v0.1-52b")]
+               + [(a, "long_500k", True, True) for a in ("stablelm-3b", "jamba-v0.1-52b",
+                                                         "rwkv6-1.6b")])
+
+
+def phase_dryrun(parallel: int = 8) -> list:
+    """[32] ``python -m repro_torch.launch.dryrun`` in subprocesses, ``parallel``
+    at a time on the host's cores: every job's exit 0 and no FAIL row, then
+    each combination's per-device numbers and ``benchmarks/torch_roofline.py``'s
+    table."""
+    print(f"[32] the dry run: python -m repro_torch.launch.dryrun, {len(DRYRUN_JOBS)} combinations "
+          f"of {len(DRYRUN_ARCHS)} architectures (one of each family), {parallel} processes at a "
+          f"time on the host's {os.cpu_count()} cores; each opens its own fake process group of "
+          f"256 or 512 ranks and traces the step on meta shards")
+    t_phase = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    pending = list(enumerate(DRYRUN_JOBS))
+    running, failed = [], []
+    try:
+        while pending or running:
+            while pending and len(running) < parallel:
+                i, (arch, shape, pod, prod) = pending.pop(0)
+                argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                        "--shape", shape, "--out", str(out_dir / f"job{i:02d}.json")]
+                argv += ["--multi-pod"] if pod else []
+                argv += ["--production"] if prod else []
+                log = open(out_dir / f"job{i:02d}.log", "w")
+                running.append((i, subprocess.Popen(argv, cwd=REPO, env=env, stdout=log,
+                                                    stderr=subprocess.STDOUT), log))
+            time.sleep(0.5)
+            for job in [j for j in running if j[1].poll() is not None]:
+                running.remove(job)
+                job[2].close()
+                if job[1].returncode != 0:
+                    failed.append(job[0])
+                    print((out_dir / f"job{job[0]:02d}.log").read_text()[-3000:])
+    finally:
+        for _, proc, log in running:
+            proc.kill()
+            proc.wait()
+            log.close()
+    check(not failed, f"dry-run jobs exited non-zero: {[DRYRUN_JOBS[i] for i in failed]}")
+    recs = []
+    for i in range(len(DRYRUN_JOBS)):
+        recs += json.loads((out_dir / f"job{i:02d}.json").read_text())
+    merged = out_dir / "torch_results.json"
+    merged.write_text(json.dumps(recs, indent=1))
+    bad = [(r["arch"], r["shape"], r["mesh"]) for r in recs if r["status"] == "FAIL"]
+    check(not bad, f"dry-run rows FAIL: {bad}")
+    print("  arch | shape | mesh | production | per device: FLOPs | collective bytes by kind | "
+          "temp GiB | trace s")
+    for r in recs:
+        if r["status"] != "ok":
+            print(f"  {r['arch']} | {r['shape']} | {r['mesh']} | {r['production']} | {r['status']}: "
+                  f"{r['note']}")
+            continue
+        coll = {k: f"{v:.4e}" for k, v in sorted(r["analyzed"]["collective_bytes"].items())}
+        print(f"  {r['arch']} | {r['shape']} | {r['mesh']} | {r['production']} | "
+              f"{r['analyzed']['flops']:.4e} | {coll} | "
+              f"{r['memory']['temp_size_in_bytes'] / 2 ** 30:.3f} | {r['trace_s']}")
+    check(any(r["status"] == "skipped" for r in recs), "whisper-base x long_500k must be skipped")
+    rows = roofline.load_table(merged)
+    print(roofline.to_markdown(rows), end="")
+    print(f"  {len(recs)} combinations, no FAIL; phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"(host, not the card)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return recs
+
+
+NEW_TRAINERS = [
+    # tag, arch, layers (0: full depth), why, flash launches a step
+    ("33", "deepseek-coder-33b", 4, "4 of 62 layers: 2.58 B parameters, 28.9 GiB of bf16 p and g "
+     "and f32 m and v", 4 * 2),
+    ("34", "internvl2-2b", 0, "full depth; 256 prefix embeddings ahead of the 4096 tokens, which "
+     "the loss drops", 24 * 2),
+    ("35", "whisper-base", 0, "full depth; the kernel takes the decoder's causal self-attention "
+     "only (6 layers): the encoder's 1500 frames and the cross-attention's 1500 keys are not "
+     "multiples of 128", 6 * 2),
+]
+
+
+def phase_new_trainer(tag: str, arch: str, layers: int, why: str, flash_per_step: int) -> dict:
+    """[33]-[35] ``launch.train.main``: int8, S 4096, batch 1, 2 steps on the
+    kernels against 2 steps on the plain versions."""
+    steps = 2
+    cfg = get_config(arch)
+    depth = layers or cfg.num_layers
+    t_phase = time.perf_counter()
+    print(f"[{tag}] trainer: {arch} full width (d_model {cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.head_dim}, {cfg.num_kv_heads} kv heads, bf16, remat), {depth} layers ({why}), "
+          f"S 4096, batch 1, explicit comm, int8, AdamW, {steps} steps")
+    result, counts = run_trainer(trainer_args("int8", steps, depth, arch=arch))
+    losses = result["losses"]
+    plan, _ = make_plan(get_model(cfg.replace(num_layers=depth)).init(None, device="meta"), 64.0)
+    print(f"  losses {losses}; median step {result['median_step_s']:.4f} s, first step "
+          f"{result['compile_s']:.3f} s, peak memory {result['peak_gib']:.1f} GiB; {plan.n_buckets} "
+          f"buckets; launches {counts}")
+    check(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    check(counts["flash_attention"] == flash_per_step * steps,
+          f"expected {flash_per_step * steps} flash launches ({flash_per_step // 2} attention "
+          f"layers on the kernel x {steps} steps x 2: forward and remat recompute)")
+    for name in ("quantize_int8_2d", "dequantize_int8_2d", "fused_add_2d"):
+        check(counts[name] == plan.n_buckets * steps,
+              f"expected one {name} per bucket and step ({plan.n_buckets} x {steps})")
+    off = [n for n, c in counts.items() if c and n not in
+           ("flash_attention", "quantize_int8_2d", "dequantize_int8_2d", "fused_add_2d")]
+    check(not off, f"the trainer launched kernels off its path: {off}")
+    ref, ref_counts = run_trainer(trainer_args("int8", steps, depth, ["--use-pallas", "never"],
+                                               arch=arch))
+    check(all(c == 0 for c in ref_counts.values()), "the plain run launched a kernel")
+    for i in range(steps):
+        rel = abs(losses[i] - ref["losses"][i]) / abs(ref["losses"][i])
+        print(f"  step {i}: kernels {losses[i]:.5f} vs plain {ref['losses'][i]:.5f} (rel diff "
+              f"{rel:.2e}, tolerance 2e-2: bf16 model)")
+        check(rel <= 2e-2, f"kernel and plain {arch} trainer disagree")
+    print(f"  plain run: median step {ref['median_step_s']:.4f} s, peak {ref['peak_gib']:.1f} GiB; "
+          f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return {"result": result, "counts": counts}
+
+
+MLA_TOL = 3e-2
+
+
+def phase_mla_block() -> None:
+    """[36] one full-width MLA attention block of deepseek-v2-236b, forward and
+    backward in bf16 on the card, against the same block in float64 on the
+    card (the attention core, rope and norm compute in float32 inside both,
+    as the model code does)."""
+    cfg = get_config("deepseek-v2-236b")
+    S = 4096
+    print(f"[36] MLA on the card: one deepseek-v2-236b attention block (attention.mla_forward) at "
+          f"full width: d_model {cfg.d_model}, {cfg.num_heads} heads, d_qk {cfg.head_dim} + "
+          f"{cfg.mla_rope_dim} = {cfg.head_dim + cfg.mla_rope_dim}, d_v {cfg.head_dim}, latent "
+          f"{cfg.mla_kv_lora}; S {S}, batch 1; forward and backward in bf16 against float64")
+    t_phase = time.perf_counter()
+    params = attn_lib.init_mla(torch.Generator(device=DEV).manual_seed(0), cfg, 0, device=DEV)
+    x = randn(1, S, cfg.d_model, seed=36, dtype=torch.bfloat16)
+    g_out = randn(1, S, cfg.d_model, seed=37, dtype=torch.bfloat16)
+
+    def run(dtype):
+        p = {k: v.detach().to(dtype).requires_grad_(True) for k, v in params.items()}
+        xx = x.detach().to(dtype).requires_grad_(True)
+        out, _ = attn_lib.mla_forward(p, xx, cfg)
+        grads = torch.autograd.grad(out, [xx, *p.values()], g_out.to(dtype))
+        return [out.detach()] + [g.detach() for g in grads], list(p)
+
+    torch.cuda.reset_peak_memory_stats()
+    got, names = run(torch.bfloat16)
+    torch.cuda.synchronize()
+    peak_bf16 = torch.cuda.max_memory_allocated() / 2 ** 30
+    want, _ = run(torch.float64)
+    labels = ["output", "d x"] + [f"d {n}" for n in names]
+    errs = {lab: rel_l2(a.double(), b) for lab, a, b in zip(labels, got, want)}
+    print(f"  relative L2 to float64: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tolerance {MLA_TOL}: about ten bf16 roundings of 2^-9 in series)")
+    print(f"  peak {peak_bf16:.1f} GiB for the bf16 block, {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} "
+          f"GiB with the float64 one; phase wall {time.perf_counter() - t_phase:.1f} s")
+    check(all(math.isfinite(v) for v in errs.values()), "an MLA output or gradient is not finite")
+    check(max(errs.values()) <= MLA_TOL, f"MLA's bf16 block is off its float64 reference: {errs}")
+    del got, want
+    torch.cuda.empty_cache()
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1918,6 +2218,11 @@ def main() -> None:
     phase_torchrun_checkpoint()
     phase_moe_trainer(trained)
     phase_families()
+    phase_specs_step(trained, card)
+    phase_dryrun()
+    for trainer in NEW_TRAINERS:
+        phase_new_trainer(*trainer)
+    phase_mla_block()
 
     # each kernel's launches on the path that runs it: ternarize on the
     # ternary trainer run, topk_mask on the topk run, wkv on rwkv6 serving,

@@ -18,6 +18,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attn import flash_attention_cuda
 from repro_torch.models.layers import (Params, _device_of, apply_rope, dense_init, rms_norm,
                                        torch_dtype)
+from repro_torch.parallel.sharding import write_at
 
 NEG_INF = -1e30
 
@@ -26,12 +27,15 @@ NEG_INF = -1e30
 # chunked online-softmax attention core
 # ---------------------------------------------------------------------------
 
-def _flash_core(q, k, v, q_pos, kv_pos, *, causal: bool, window: int, chunk: int):
+def _flash_core(q, k, v, q_lo: int, *, causal: bool, window: int, chunk: int):
     """q: (B, Hkv, G, Sq, d); k, v: (B, Hkv, Skv, d).
 
-    q_pos: (Sq,) absolute positions of queries; kv_pos: (Skv,).
-    Returns (B, Hkv, G, Sq, d).  Walks the KV chunks with a running
-    (max, denominator, accumulator) triple; f32 accumulation.
+    The queries sit at absolute positions ``q_lo .. q_lo + Sq - 1``, the
+    keys at ``0 .. Skv - 1``.  Which KV chunks to skip is decided from those
+    Python ints, never from a tensor, so the walk reads nothing back from
+    the device (and traces on meta or fake tensors).  Returns (B, Hkv, G, Sq,
+    d).  Walks the KV chunks with a running (max, denominator, accumulator)
+    triple; f32 accumulation.
     """
     B, Hkv, G, Sq, d = q.shape
     dv = v.shape[-1]
@@ -41,7 +45,9 @@ def _flash_core(q, k, v, q_pos, kv_pos, *, causal: bool, window: int, chunk: int
         chunk = Skv
     scale = 1.0 / math.sqrt(d)
     qf = q.float() * scale
-    q_lo, q_hi = int(q_pos[0]), int(q_pos[-1])                   # positions ascend
+    q_hi = q_lo + Sq - 1
+    q_pos = q_lo + torch.arange(Sq, device=q.device)
+    kv_pos = torch.arange(Skv, device=q.device)
 
     m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=q.device)
@@ -50,8 +56,8 @@ def _flash_core(q, k, v, q_pos, kv_pos, *, causal: bool, window: int, chunk: int
         pc = kv_pos[start:start + chunk]
         # a block no query can see adds exact zeros (p = exp(-1e30 - m) = 0
         # once m is finite, which the first block guarantees): skip it
-        if start > 0 and ((causal and int(pc[0]) > q_hi)
-                          or (window and int(pc[-1]) <= q_lo - window)):
+        if start > 0 and ((causal and start > q_hi)
+                          or (window and start + pc.shape[0] - 1 <= q_lo - window)):
             continue
         kc = k[:, :, start:start + chunk].float()
         vc = v[:, :, start:start + chunk].float()
@@ -105,12 +111,45 @@ class _FlashKernelFn(torch.autograd.Function):
         q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
         with torch.enable_grad():
             out = _flash_reference(q, k, v, ctx.causal)
-        gq, gk, gv = torch.autograd.grad(out, (q, k, v), g)
-        return gq, gk, gv, None
+        grads = torch.autograd.grad(out, (q, k, v), g)
+        # dense strides: a DTensor made of these shards (``_flash_on_shards``) assumes them
+        return (*(t.contiguous() for t in grads), None)
 
 
 def _flash_pallas_cv(q, k, v, causal: bool):
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        return _flash_on_shards(q, k, v, causal)
     return _FlashKernelFn.apply(q, k, v, causal)
+
+
+def _flash_on_shards(q, k, v, causal: bool):
+    """The kernel on each rank's shards of DTensor q, k, v (``local_map``).
+    Attention is independent per (batch row, head), so with the batch split
+    over the data axes and the heads over `model` (the placements the specs
+    give the projections' outputs) each rank runs the kernel on its rows and
+    heads; query head h reads kv head h // G, so the kv heads must split
+    over `model` as evenly as the query heads."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    m = mesh.size(names.index("model")) if "model" in names else 1
+    if k.shape[1] % m:
+        raise ValueError(f"the flash kernel on a mesh needs the {k.shape[1]} kv heads to split "
+                         f"over the {m} ranks of `model`")
+    if m > 1 and torch.is_grad_enabled():
+        # DTensor (torch 2.13) then views a non-dense local gradient in the
+        # rope's backward and fails; the plain path has no such view
+        raise NotImplementedError("the flash kernel on DTensors under autograd needs a `model` "
+                                  "axis of one rank; take use_pallas='never' on wider meshes")
+    pl = [Shard(1) if name == "model" else Shard(0) for name in names]
+    fn = local_map(lambda q, k, v: _FlashKernelFn.apply(q, k, v, causal),
+                   out_placements=pl, in_placements=(pl, pl, pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(q, k, v)
 
 
 def _flash_reference(q, k, v, causal):
@@ -140,16 +179,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     Hkv = k.shape[1]
     G = Hq // Hkv
     qg = q.reshape(B, Hkv, G, Sq, d)
-    kv_pos = torch.arange(k.shape[2], device=q.device)
 
     qchunk = min(chunk, Sq)
     if Sq % qchunk != 0:
         qchunk = Sq
     outs = []
     for i in range(Sq // qchunk):
-        q_pos = q_offset + i * qchunk + torch.arange(qchunk, device=q.device)
         outs.append(_flash_core(qg[:, :, :, i * qchunk:(i + 1) * qchunk], k, v,
-                                q_pos, kv_pos, causal=causal, window=window,
+                                q_offset + i * qchunk, causal=causal, window=window,
                                 chunk=chunk))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=3)
     return out.reshape(B, Hq, Sq, v.shape[-1])
@@ -222,8 +259,8 @@ def gqa_decode(params: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
     slot = cache_index % W
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
+    write_at(cache["k"], 1, slot, k[:, 0])
+    write_at(cache["v"], 1, slot, v[:, 0])
     n_valid = min(cache_index + 1, W)
     valid = (torch.arange(W, device=x.device) < n_valid)[None, :].expand(B, W)
     out = decode_attention(q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2), valid)
@@ -298,8 +335,8 @@ def mla_decode(params: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     pos = torch.tensor([cache_index], device=x.device)
     q_nope, q_rope, c_new, kr_new = _mla_qkv(params, x, cfg, pos)
     slot = cache_index % W
-    cache["c_kv"][:, slot] = c_new[:, 0]
-    cache["k_rope"][:, slot] = kr_new[:, 0]
+    write_at(cache["c_kv"], 1, slot, c_new[:, 0])
+    write_at(cache["k_rope"], 1, slot, kr_new[:, 0])
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     n_valid = min(cache_index + 1, W)
     valid = torch.arange(W, device=x.device)[None, :] < n_valid          # (1, W)

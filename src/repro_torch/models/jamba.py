@@ -31,6 +31,7 @@ from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (Params, _device_of, chunked_softmax_xent, dense_init,
                                        embed_init, init_mlp, mlp, rms_norm, torch_dtype)
+from repro_torch.parallel.sharding import lookup
 from repro_torch.utils.tree import tree_map
 
 
@@ -114,7 +115,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, want_cache: 
     """tokens: (B, S) int -> (hidden (B, S, D), aux loss, caches).  With
     ``want_cache`` the caches are ``{"l<i>": {...}}``, each leaf stacked over
     the super-blocks; the super-blocks then run without checkpointing."""
-    x = params["embed"]["w"][tokens.long()]
+    x = lookup(params["embed"]["w"], tokens)
     layout = block_layout(cfg)
     aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -204,7 +205,7 @@ def decode_step(params: Params, token: torch.Tensor, cache, cache_index, cfg: Mo
     """token: (B, 1) int; cache_index: tokens already cached (an int).
     Returns (logits (B, 1, V), cache), the cache the one passed in."""
     cache_index = int(cache_index)
-    x = params["embed"]["w"][token.long()]
+    x = lookup(params["embed"]["w"], token)
     layout = block_layout(cfg)
     for j in range(n_super_blocks(cfg)):
         for i, (mixer, use_moe) in enumerate(layout):

@@ -165,8 +165,9 @@ def chunked_softmax_xent(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.T
         if vocab_mask is not None:
             logits = logits.masked_fill(vocab_mask, -1e30)
         lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, lc[..., None])[..., 0]
-        total = total + torch.sum(lse - tgt)
+        # the difference before the [..., 0]: on a vocab-sharded DTensor the
+        # gather is a masked partial sum, which a view must not come between
+        total = total + torch.sum((lse[..., None] - torch.gather(logits, -1, lc[..., None]))[..., 0])
     return total / (B * S)
 
 

@@ -110,7 +110,9 @@ def _chunks(S: int, chunk: int):
 def _ssm_scan_chunked(decay, bx, h0, chunk: int):
     """h_t = decay_t * h_{t-1} + bx_t, a chunk at a time.  decay, bx: (B, S,
     di, n); h0: (B, di, n).  Returns (states (B, S, di, n), h_final)."""
-    states = decay.new_empty(decay.shape)
+    # empty_like, not new_empty: on a DTensor it keeps decay's sharding, and
+    # each chunk's write stays on its shard
+    states = torch.empty_like(decay, memory_format=torch.contiguous_format)
     h = h0
     for c0, c1 in _chunks(decay.shape[1], chunk):
         st = _chunk_scan(decay[:, c0:c1], bx[:, c0:c1], h)
@@ -216,6 +218,34 @@ def _scan_formed(cfg: ModelConfig, kernel: bool, decay, bx, c_t, h0):
     return torch.einsum("bsdn,bsn->bsd", states, c_t), h_final
 
 
+def _dt_proj(low, w_dt, dt_bias):
+    """dt = softplus(low @ w_dt + dt_bias), f32: (B, S, dt_rank) -> (B, S, di).
+
+    On DTensors the specs split ``w_dt``'s and ``dt_bias``'s d_inner over
+    `model`, and ``low`` comes out of a product over the `model`-split
+    d_inner as a pending sum; it is reduced (small: dt_rank wide) and each
+    rank computes its slice of d_inner (``local_map``).  DTensor's own
+    choice for the add, a pending sum of the bias too, is one that some
+    torch releases cannot carry out."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    def proj(low, w_dt, dt_bias):
+        return F.softplus((low @ w_dt).float() + dt_bias)
+
+    if not isinstance(low, DTensor):
+        return proj(low, w_dt, dt_bias)
+    names = low.device_mesh.mesh_dim_names
+    rows = [Replicate() if n == "model" else p if p.is_shard() else Replicate()
+            for n, p in zip(names, low.placements)]
+    fn = local_map(proj, out_placements=[Shard(2) if n == "model" else p
+                                         for n, p in zip(names, rows)],
+                   in_placements=(rows, [Shard(1) if n == "model" else Replicate() for n in names],
+                                  [Shard(0) if n == "model" else Replicate() for n in names]),
+                   device_mesh=low.device_mesh, redistribute_inputs=True)
+    return fn(low, w_dt, dt_bias)
+
+
 def mamba_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 state: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -229,7 +259,7 @@ def mamba_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig,
     xs = F.silu(xs)
 
     bcdt = xs @ params["w_bcdt"]                         # (B, S, dt_rank+2n)
-    dt = F.softplus((bcdt[..., :dt_rank] @ params["w_dt"]).float() + params["dt_bias"])
+    dt = _dt_proj(bcdt[..., :dt_rank], params["w_dt"], params["dt_bias"])
     b_t = bcdt[..., dt_rank:dt_rank + n].float()
     c_t = bcdt[..., dt_rank + n:].float()
 

@@ -37,6 +37,7 @@ from repro_torch.kernels.wkv import wkv, wkv_plain
 from repro_torch.models.attention import use_pallas
 from repro_torch.models.layers import (Params, _device_of, chunked_softmax_xent, dense_init,
                                        embed_init, rms_norm, torch_dtype)
+from repro_torch.parallel.sharding import lookup
 from repro_torch.utils.tree import tree_map
 
 DECAY_LORA = 64
@@ -224,7 +225,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     None).  A Python loop over the stacked layers (``lax.scan`` in JAX),
     each under ``torch.utils.checkpoint`` with ``cfg.remat`` while
     gradients are recorded."""
-    x = params["embed"]["w"][tokens.long()]
+    x = lookup(params["embed"]["w"], tokens)
     if state is None:
         B = tokens.shape[0]
         H, hd = head_dims(cfg)

@@ -26,6 +26,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (Params, _device_of, chunked_softmax_xent, dense_init,
                                        embed_init, init_mlp, mlp, rms_norm, torch_dtype)
+from repro_torch.parallel.sharding import lookup, stacked_empty
 from repro_torch.utils.tree import tree_map
 
 
@@ -116,7 +117,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     over its layers: ``{"k", "v"}`` (n, B, P + S, KV, hd) for GQA, ``{"c_kv",
     "k_rope"}`` (n, B, P + S, L | R) for MLA; the layers then run without
     checkpointing."""
-    x = params["embed"]["w"][tokens.long()]
+    x = lookup(params["embed"]["w"], tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -135,7 +136,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             if want_cache:
                 x, aux_acc, cache = body(x, aux_acc, lp, use_moe)
                 if i == 0:        # the stacked cache, written a layer at a time
-                    caches[name] = {key: val.new_empty((n_layers,) + val.shape)
+                    caches[name] = {key: stacked_empty(val, n_layers)
                                     for key, val in cache.items()}
                 for key, val in cache.items():
                     caches[name][key][i] = val
@@ -220,7 +221,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any], cach
     Returns (logits (B, 1, V), cache).  Each layer's slice of the stacked
     cache is written in place, so the returned cache is the one passed in."""
     cache_index = int(cache_index)
-    x = params["embed"]["w"][token.long()]
+    x = lookup(params["embed"]["w"], token)
     for name, n_layers, use_moe in _stacks(cfg):
         for i in range(n_layers):
             lp = tree_map(lambda p: p[i], params[name])

@@ -32,6 +32,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.layers import (Params, _device_of, chunked_softmax_xent, dense_init,
                                        embed_init, init_mlp, rms_norm, torch_dtype)
+from repro_torch.parallel.sharding import lookup
 from repro_torch.utils.tree import tree_map
 
 
@@ -162,7 +163,7 @@ def decode_stack(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
     """The decoder over whole sequences: (hidden, caches).  With
     ``want_cache`` the caches are ``{k, v}`` (L, B, S, KV, hd) and ``{xk,
     xv}`` (L, B, Se, KV, hd), and the layers run without checkpointing."""
-    x = params["embed"]["w"][tokens.long()]
+    x = lookup(params["embed"]["w"], tokens)
     caches = []
     for bp in _layers(params["dec_blocks"], cfg.num_layers):
         if want_cache:
@@ -212,7 +213,7 @@ def decode_step(params: Params, token: torch.Tensor, cache, cache_index, cfg: Mo
     ``cache_spec``).  Each layer's ``k``, ``v`` slot is written in place; the
     returned cache is the one passed in."""
     cache_index = int(cache_index)
-    x = params["embed"]["w"][token.long()]
+    x = lookup(params["embed"]["w"], token)
     H, hd = cfg.num_heads, cfg.head_dim
     for i, bp in enumerate(_layers(params["dec_blocks"], cfg.num_layers)):
         a, _ = attn_lib.gqa_decode(bp["attn"], rms_norm(x, bp["ln1"]["w"], cfg.norm_eps),

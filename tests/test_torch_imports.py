@@ -67,6 +67,23 @@ print("PLAIN_OK")
 """
 
 
+_SLICE_12 = r"""
+import os, sys
+sys.path.insert(0, os.getcwd())                                  # benchmarks/
+import torch.distributed as dist
+from repro_torch.launch import dryrun, mesh, specs
+from repro_torch.parallel import sharding
+from repro_torch.utils import step_analysis
+from benchmarks import torch_perf_lab, torch_roofline
+assert not dist.is_initialized(), "importing opened a process group"
+assert "XLA_FLAGS" not in os.environ
+assert step_analysis.COLLECTIVE_KINDS[0] == "all-gather" and mesh.GPUS_PER_NODE == 8
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+print("BAD", bad)
+"""
+
+
 def _run(code, env_extra=None):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO / "src")
@@ -81,6 +98,15 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     lines = dict(l.split(" ", 1) for l in proc.stdout.strip().splitlines())
     assert int(lines["IMPORTED"]) >= 30
     assert lines["BAD"] == "[]"
+
+
+def test_the_mesh_specs_dry_run_and_their_benches_import_alone():
+    """Slice 12's modules and benches: no JAX, no JAX package, no process
+    group and no ``XLA_FLAGS`` on import (the dry run opens its fake group
+    only when it runs)."""
+    proc = _run(_SLICE_12)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BAD []" in proc.stdout
 
 
 def test_kernels_import_and_plain_versions_run_without_nvcc_or_triton(tmp_path):

@@ -84,7 +84,17 @@ through their entry points:
   ``benchmarks/torch_roofline.py``'s table of it; ``launch.train.main`` on
   deepseek-coder-33b (4 layers), internvl2-2b and whisper-base (full depth),
   int8, against plain runs; and one full-width MLA block of
-  deepseek-v2-236b, forward and backward in bf16, against float64.
+  deepseek-v2-236b, forward and backward in bf16, against float64. [32]
+  also checks that every train_4k traced on both meshes counts, per
+  device, 0.45-0.55 of 16x16's FLOPs on 2x16x16 and gathers over `pod` no
+  more than its bf16 parameters a device;
+- last (phase 37), ``examples/torch_train_e2e.main``: repro-100m (the
+  reference example's ~100M float32 decoder), S 256, batch 4, 300 steps
+  under each of none, fp16, int8, ternary and topk, every loss falling and
+  fp16 within 0.15 of none, the first 3 steps of none and int8 against the
+  plain versions; then ``examples/torch_gradient_compression.main``,
+  ``examples/torch_serve_batch.main`` and ``benchmarks/torch_run.py`` (a
+  subprocess that must exit 0) on the card.
 
 Launch counters, reset right before each run and read right after, show
 that the run went through the kernels.
@@ -154,8 +164,9 @@ from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.parallel.collectives import DistributedWorld, InProcessWorld  # noqa: E402
 from repro_torch.optim.optimizers import get_optimizer  # noqa: E402
 from repro_torch.optim.schedule import get_schedule  # noqa: E402
+from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.parallel.grad_sync import make_plan, sync_grads, sync_grads_per_rank  # noqa: E402
-from repro_torch.utils.tree import tree_leaves, tree_map, value_and_grad  # noqa: E402
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths, value_and_grad  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -342,11 +353,14 @@ def flash_padded(q, k, v, H, KV) -> torch.Tensor:
     return out
 
 
-def flash_shape(label: str, B: int, H: int, KV: int, S: int, hd: int, seed: int) -> dict:
-    """The bf16 kernel at a main path's causal shape: held against the plain
-    version, timed beside it, beside scaled_dot_product_attention and
-    beside its bound."""
-    q, k, v = flash_case(B * H, S, hd, torch.bfloat16, True, H, KV, seed=seed)
+def flash_shape(label: str, B: int, H: int, KV: int, S: int, hd: int, seed: int,
+                dtype=torch.bfloat16) -> dict:
+    """The kernel at a main path's causal shape (bf16: ``flash_attn_sm90.cu``
+    on the tensor cores; f32: ``flash_attn.cu`` on the CUDA cores): held
+    against the plain version, timed beside it, beside
+    scaled_dot_product_attention and beside its bound."""
+    f32 = dtype == torch.float32
+    q, k, v = flash_case(B * H, S, hd, dtype, True, H, KV, seed=seed)
     out = fl.flash_attention_cuda(q, k, v, causal=True, n_heads=H, n_kv_heads=KV)
     # the plain version holds its (B·H, S, S) f32 scores three times over:
     # above 8 GiB of them it runs one batch row a call
@@ -360,7 +374,8 @@ def flash_shape(label: str, B: int, H: int, KV: int, S: int, hd: int, seed: int)
 
     ref = plain()
     check(bool(torch.isfinite(out).all()), f"flash output not finite at {label}")
-    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+    tol = 2e-3 if f32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     err = float((out.float() - ref.float()).abs().max())
     del out, ref
     torch.cuda.empty_cache()
@@ -370,9 +385,11 @@ def flash_shape(label: str, B: int, H: int, KV: int, S: int, hd: int, seed: int)
     lib = time_device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                                                 enable_gqa=KV != H))
     flops = 4.0 * hd * B * H * (S * (S + 1) / 2)          # two products over the causal triangle
-    nbytes = 2 * S * hd * (2 * B * H + 2 * B * KV)        # q and o; k and v, bf16
-    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"  ({B * H},{S},{hd}) bf16 causal Hq={H} Hkv={KV} ({label}): err {err:.3e}, kernel "
+    nbytes = q.element_size() * S * hd * (2 * B * H + 2 * B * KV)    # q and o; k and v
+    t_ops = flops / (F32_FLOPS if f32 else BF16_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  ({B * H},{S},{hd}) {'f32' if f32 else 'bf16'} causal Hq={H} Hkv={KV} ({label}): "
+          f"err {err:.3e}, kernel "
           f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms"
           f"{'' if rows == B else f' ({B} calls of one batch row)'}, "
           f"scaled_dot_product_attention {lib:.4f} ms ({ms / lib:.2f}x), bound "
@@ -384,7 +401,8 @@ def flash_shape(label: str, B: int, H: int, KV: int, S: int, hd: int, seed: int)
         padded = time_device_ms(lambda: flash_padded(q, k, v, H, KV))
         print(f"    the same with the second product at N = 128 on zero-padded rows: {padded:.4f} ms "
               f"({padded / ms:.2f}x the kernel)")
-    return {"name": "flash_attention", "route": "cuda", "source": CSRC + "flash_attn_sm90.cu",
+    return {"name": "flash_attention", "route": "cuda",
+            "source": CSRC + ("flash_attn.cu" if f32 else "flash_attn_sm90.cu"),
             "replaces": "src/repro/kernels/flash_attn.py:84", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib}
@@ -445,6 +463,9 @@ def phase_flash() -> dict:
     flash_shape("deepseek-coder-33b serving prefill", SERVE_B, 56, 8, SERVE_P, 128, seed=1304)
     # whisper-base's decoder self-attention in phase 35's trainer: 8 heads of 64, MHA
     flash_shape("whisper-base trainer (decoder self-attention)", 1, 8, 8, 4096, 64, seed=1305)
+    # repro-100m in phase 37's 300-step runs: f32, batch 4, S 256, 12 heads of 64, 4 kv heads
+    flash_shape("repro-100m trainer (examples/torch_train_e2e.py)", 4, 12, 4, 256, 64, seed=1306,
+                dtype=torch.float32)
     return row
 
 
@@ -1106,15 +1127,21 @@ def trainer_args(compression: str, steps: int, layers: int, extra=(),
             "--log-every", "1", "--layers", str(layers), *extra]
 
 
-def run_trainer(argv: list) -> tuple:
+def run_trainer_with(fn) -> tuple:
+    """``fn()``'s trainer result and the kernel launches it made, counted
+    from 0, and its peak device memory."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
-    result = train.main(argv)
+    result = fn()
     counts = {**build.launch_counts, **build.route_counts}
     torch.cuda.synchronize()
     result["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     return result, counts
+
+
+def run_trainer(argv: list) -> tuple:
+    return run_trainer_with(lambda: train.main(argv))
 
 
 def phase_trainer(layers: int) -> dict:
@@ -1956,7 +1983,7 @@ def phase_specs_step(phase4: dict, card: str) -> dict:
 # there, so that shape runs for internvl2-2b and whisper-base only
 DRYRUN_ARCHS = ["jamba-v0.1-52b", "rwkv6-1.6b", "deepseek-v2-236b", "moonshot-v1-16b-a3b",
                 "stablelm-3b", "whisper-base", "internvl2-2b"]
-DRYRUN_JOBS = ([(a, "train_4k", False, False) for a in DRYRUN_ARCHS]
+DRYRUN_JOBS = ([(a, "train_4k", pod, False) for a in DRYRUN_ARCHS for pod in (False, True)]
                + [(a, "train_4k", True, True) for a in ("moonshot-v1-16b-a3b", "stablelm-3b",
                                                         "whisper-base", "internvl2-2b")]
                + [("whisper-base", "prefill_32k", True, True),
@@ -1966,6 +1993,53 @@ DRYRUN_JOBS = ([(a, "train_4k", False, False) for a in DRYRUN_ARCHS]
                                                           "jamba-v0.1-52b")]
                + [(a, "long_500k", True, True) for a in ("stablelm-3b", "jamba-v0.1-52b",
                                                          "rwkv6-1.6b")])
+
+
+def param_bytes_a_device(arch: str, axis_sizes: dict) -> int:
+    """``arch``'s bf16 parameter bytes one device holds: each leaf split over
+    the mesh axes its spec names."""
+    cfg = get_config(arch)
+    params = get_model(cfg).init(None, device="meta")
+    total = 0
+    for path, leaf in zip(tree_paths(params), tree_leaves(params)):
+        ways = 1
+        for entry in shd.param_specs(params, cfg)[path]:
+            for axis in (entry if isinstance(entry, tuple) else (entry,)):
+                ways *= axis_sizes.get(axis, 1) if axis else 1
+        total += leaf.numel() * 2 // ways
+    return total
+
+
+def check_pod_halves(recs: list) -> None:
+    """Every train_4k traced on both meshes with the same flags: 2x16x16 splits
+    the batch of 256 over 32 ranks where 16x16 splits it over 16, so each
+    device's FLOPs are 0.45-0.55 of 16x16's; and `pod` carries no all-gather
+    larger than the arch's bf16 parameter bytes a device (the weights' gathers
+    at most, no activation)."""
+    ok = {(r["arch"], r["shape"], r["mesh"], r["production"]): r for r in recs
+          if r["status"] == "ok"}
+    pairs = [(flat, ok.get((a, s, "2x16x16", p))) for (a, s, m, p), flat in ok.items()
+             if s == "train_4k" and m == "16x16"]
+    pairs = [(f, q) for f, q in pairs if q is not None]
+    check(len(pairs) >= len(DRYRUN_ARCHS), f"expected train_4k on both meshes for every arch, "
+                                           f"got {len(pairs)} pairs")
+    print("  train_4k on both meshes: FLOPs a device 2x16x16 / 16x16 (0.45-0.55), the largest "
+          "all-gather over `pod` against the bf16 parameter bytes a device")
+    bad = []
+    for flat, pod in pairs:
+        ratio = pod["analyzed"]["flops"] / flat["analyzed"]["flops"]
+        pod_ag = pod["analyzed"]["collective_bytes_by_axis"].get("pod", {}).get("all-gather", 0.0)
+        limit = param_bytes_a_device(pod["arch"], {"pod": 2, "data": 16, "model": 16})
+        print(f"  {pod['arch']}{' (production)' if pod['production'] else ''}: "
+              f"{flat['analyzed']['flops']:.4e} -> {pod['analyzed']['flops']:.4e} FLOPs "
+              f"(ratio {ratio:.4f}); pod all-gather {pod_ag:.4e} B against {limit:.4e} B; by "
+              f"axis {pod['analyzed']['collective_bytes_by_axis']}")
+        if not 0.45 <= ratio <= 0.55:
+            bad.append(f"{pod['arch']} train_4k: 2x16x16 / 16x16 FLOPs {ratio:.3f}")
+        if pod_ag > limit:
+            bad.append(f"{pod['arch']} train_4k gathers {pod_ag:.3e} B over `pod`, above its "
+                       f"{limit:.3e} B of bf16 parameters a device")
+    check(not bad, "; ".join(bad))
 
 
 def phase_dryrun(parallel: int = 8) -> list:
@@ -2028,6 +2102,7 @@ def phase_dryrun(parallel: int = 8) -> list:
               f"{r['analyzed']['flops']:.4e} | {coll} | "
               f"{r['memory']['temp_size_in_bytes'] / 2 ** 30:.3f} | {r['trace_s']}")
     check(any(r["status"] == "skipped" for r in recs), "whisper-base x long_500k must be skipped")
+    check_pod_halves(recs)
     rows = roofline.load_table(merged)
     print(roofline.to_markdown(rows), end="")
     print(f"  {len(recs)} combinations, no FAIL; phase wall {time.perf_counter() - t_phase:.1f} s "
@@ -2131,6 +2206,119 @@ def phase_mla_block() -> None:
     torch.cuda.empty_cache()
 
 
+E2E_CODECS = ("none", "fp16", "int8", "ternary", "topk")
+E2E_STEPS = 300
+# the codec kernels each codec's sync launches once a bucket and step
+E2E_KERNELS = {"none": (), "fp16": (), "int8": ("quantize_int8_2d", "dequantize_int8_2d"),
+               "ternary": ("ternarize_2d", "dequantize_int8_2d"), "topk": ("topk_mask_2d",)}
+
+
+def e2e_sync_ms(codec: str, params) -> float:
+    """``sync_grads`` alone on repro-100m's float32 gradient tree, in-process
+    world of one (CUDA events behind a stream spin, median of 5)."""
+    gen = torch.Generator(device=DEV).manual_seed(37)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen, device=DEV, dtype=p.dtype),
+                     params)
+    comm = CommConfig(mode="explicit", compression=codec, topk_ratio=0.25)
+    return time_device_ms(lambda: sync_grads(grads, InProcessWorld(1), comm), reps=5)
+
+
+def phase_e2e_codecs(dryrun_recs: list) -> dict:
+    """[37] ``examples/torch_train_e2e.main`` on the card: repro-100m (the
+    reference's ~100M config, float32), S 256, batch 4, 300 steps under each
+    codec; the first 3 steps of none and int8 against ``--use-pallas never``;
+    then ``examples/torch_gradient_compression.main``,
+    ``examples/torch_serve_batch.main`` and ``benchmarks/torch_run.py`` (a
+    subprocess that must exit 0)."""
+    from examples import torch_gradient_compression, torch_serve_batch, torch_train_e2e
+
+    t_phase = time.perf_counter()
+    cfg = get_config("repro-100m")
+    meta = get_model(cfg).init(None, device="meta")
+    plan, _ = make_plan(meta, 64.0)
+    print(f"[37] codecs over {E2E_STEPS} steps: examples/torch_train_e2e.main, repro-100m ("
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, "
+          f"{cfg.num_kv_heads} kv heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, float32, "
+          f"{sum(t.numel() for t in tree_leaves(meta)) / 1e6:.1f} M parameters, {plan.n_buckets} "
+          f"buckets), S 256, batch 4, explicit comm, AdamW, cosine lr 3e-4; each codec from the "
+          f"same seed")
+    ckpt = tempfile.mkdtemp(prefix="e2e_ckpt_")
+    out = {}
+    try:
+        for codec in E2E_CODECS:
+            argv = ["--steps", str(E2E_STEPS), "--compression", codec, "--ckpt-dir", ckpt,
+                    "--ckpt-every", "150", "--log-every", "100", "--topk-ratio", "0.25"]
+            res, counts = run_trainer_with(lambda: torch_train_e2e.main(argv))
+            losses = res["losses"]
+            sync_ms = e2e_sync_ms(codec, meta)
+            step_ms = res["median_step_s"] * 1e3
+            tail = statistics.mean(losses[-20:])
+            out[codec] = {"first": losses[0], "last20": tail, "last": losses[-1], "step_ms": step_ms,
+                          "sync_ms": sync_ms, "counts": counts, "losses": losses}
+            print(f"  {codec}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the last 20: "
+                  f"{tail:.4f}); median step {step_ms:.2f} ms, {res['tokens_per_s']:.0f} tokens/s; "
+                  f"sync_grads {sync_ms:.3f} ms = {100 * sync_ms / step_ms:.2f} % of the step; "
+                  f"peak {res['peak_gib']:.2f} GiB; launches: flash {counts['flash_attention']}, "
+                  + ", ".join(f"{k} {counts[k]}" for k in ("quantize_int8_2d", "dequantize_int8_2d",
+                                                           "ternarize_2d", "topk_mask_2d",
+                                                           "fused_add_2d")))
+            check(len(losses) == E2E_STEPS and all(math.isfinite(x) for x in losses),
+                  f"{codec}: a loss is not finite")
+            check(tail < losses[0], f"{codec}: the loss did not fall")
+            check(counts["flash_attention"] == cfg.num_layers * E2E_STEPS,
+                  f"{codec}: expected {cfg.num_layers * E2E_STEPS} flash launches (f32 route, "
+                  f"forward only: no remat)")
+            for name in E2E_KERNELS[codec]:
+                check(counts[name] == plan.n_buckets * E2E_STEPS,
+                      f"{codec}: expected one {name} per bucket and step")
+            off = [n for n, c in counts.items() if c and n not in
+                   ("flash_attention", "fused_add_2d", *E2E_KERNELS[codec])]
+            check(not off, f"{codec}: launched kernels off its path: {off}")
+        gap = abs(out["fp16"]["last"] - out["none"]["last"])
+        print(f"  fp16 ends {gap:.4f} from none (the reference's check: < 0.15)")
+        check(gap < 0.15, "fp16 does not track the uncompressed run")
+        for codec in ("none", "int8"):
+            argv = ["--steps", "3", "--compression", codec, "--ckpt-dir", "",
+                    "--use-pallas", "never"]
+            ref, ref_counts = run_trainer_with(lambda: torch_train_e2e.main(argv))
+            check(all(c == 0 for c in ref_counts.values()), "the plain run launched a kernel")
+            for i in range(3):
+                got, want = out[codec]["losses"][i], ref["losses"][i]
+                rel = abs(got - want) / abs(want)
+                print(f"  {codec} step {i}: kernels {got:.6f} vs plain {want:.6f} (rel diff "
+                      f"{rel:.2e}, tolerance 2e-2)")
+                check(rel <= 2e-2, f"{codec}: kernel and plain e2e runs disagree")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    print("  examples/torch_gradient_compression.main on the card (stablelm-3b smoke, 10 steps "
+          "each of none, fp16, int8, topk 0.25)")
+    build.reset_launch_counts()
+    torch_gradient_compression.main(["--device", "cuda"])
+    check(build.launch_counts["quantize_int8_2d"] > 0 and build.launch_counts["topk_mask_2d"] > 0,
+          "the compression example missed its codec kernels")
+    print("  examples/torch_serve_batch.main on the card (smoke: batch 2, prompt 32, 8 tokens)")
+    build.reset_launch_counts()
+    served = torch_serve_batch.main(["--device", "cuda"])
+    print(f"  launches: {dict(build.launch_counts)}")
+    check(build.launch_counts["wkv"] > 0, "rwkv6 did not take the WKV kernel")
+    check(all(r["tokens"].shape == (2, 9) for r in served.values()), "a served batch is misshapen")
+    results = Path(tempfile.mkdtemp(prefix="torch_run_")) / "torch_results.json"
+    results.write_text(json.dumps(dryrun_recs))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(REPO / "benchmarks" / "torch_run.py"),
+                           "--dryrun-results", str(results)], cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    print("\n".join("    " + line for line in proc.stdout.splitlines()
+                    if line.startswith(("SECTION", "golden", "scheduler-golden", "quantize",
+                                        "ternarize", "topk", "fused", "h100_whatif",
+                                        "ALL BENCHMARKS", "--"))))
+    print(f"  benchmarks/torch_run.py: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    check(proc.returncode == 0, f"benchmarks/torch_run.py failed: {proc.stderr[-3000:]}")
+    shutil.rmtree(results.parent, ignore_errors=True)
+    print(f"  phase wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32, help="depth of the int8 trainer run")
@@ -2219,10 +2407,11 @@ def main() -> None:
     phase_moe_trainer(trained)
     phase_families()
     phase_specs_step(trained, card)
-    phase_dryrun()
+    dryrun_recs = phase_dryrun()
     for trainer in NEW_TRAINERS:
         phase_new_trainer(*trainer)
     phase_mla_block()
+    phase_e2e_codecs(dryrun_recs)
 
     # each kernel's launches on the path that runs it: ternarize on the
     # ternary trainer run, topk_mask on the topk run, wkv on rwkv6 serving,

@@ -298,12 +298,14 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
+def main(argv=None, params=None):
+    """``params``: the model's tree on the device, in place of the random
+    ones drawn from ``--seed`` (not with ``--serve``)."""
     args = build_parser().parse_args(argv)
     resolve_device(args.device)             # refuse before a listener starts, too
     if args.serve:
         return serve(args)
-    return run(args)
+    return run(args, params)
 
 
 if __name__ == "__main__":

@@ -178,31 +178,35 @@ def dryrun(args) -> dict:
             "n_buckets": plan.n_buckets, "bucket_order": list(order)}
 
 
-def run(args) -> dict:
+def run(args, params=None) -> dict:
+    """Train ``--steps`` steps; ``params`` (the model's tree on the device)
+    replace the random ones drawn from ``--seed``."""
     if args.dryrun:
         return dryrun(args)
     device = resolve_device(args.device)
     cfg = config_from_args(args)
     shape = INPUT_SHAPES[args.shape].smoke() if args.smoke else INPUT_SHAPES[args.shape]
-    if args.batch:
-        shape = InputShape(shape.name, shape.seq_len, args.batch, shape.kind)
+    if args.batch or args.seq_len:
+        shape = InputShape(shape.name, args.seq_len or shape.seq_len,
+                           args.batch or shape.global_batch, shape.kind)
     world, device = build_world(device)
     try:
-        return _train(args, cfg, shape, world, device)
+        return _train(args, cfg, shape, world, device, params)
     finally:
         if isinstance(world, DistributedWorld):
             import torch.distributed as dist
             dist.destroy_process_group()
 
 
-def _train(args, cfg, shape: InputShape, world: World, device: torch.device) -> dict:
+def _train(args, cfg, shape: InputShape, world: World, device: torch.device,
+           params=None) -> dict:
     log = print if world.rank == 0 else (lambda *a, **k: None)
     comm = comm_from_args(args)
     api = get_model(cfg)
     opt = get_optimizer(args.optimizer)
 
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = api.init(gen)
+    if params is None:
+        params = api.init(torch.Generator(device=device).manual_seed(args.seed))
     if world.size > 1:
         world.broadcast_(tree_leaves(params))           # equal on every rank, as DDP makes them
     opt_state = opt.init(params)
@@ -273,6 +277,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="reduced config + tiny shape (CPU-friendly)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--seq-len", type=int, default=0,
+                    help="sequence length in place of the shape's (0: the shape's)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--schedule", default="cosine", choices=["cosine", "constant"])
     ap.add_argument("--warmup", type=int, default=5)
@@ -307,8 +313,8 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
-    return run(build_parser().parse_args(argv))
+def main(argv=None, params=None):
+    return run(build_parser().parse_args(argv), params)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attn import flash_attention_cuda
 from repro_torch.models.layers import (Params, _device_of, apply_rope, dense_init, rms_norm,
                                        torch_dtype)
+from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import write_at
 
 NEG_INF = -1e30
@@ -112,44 +113,31 @@ class _FlashKernelFn(torch.autograd.Function):
         with torch.enable_grad():
             out = _flash_reference(q, k, v, ctx.causal)
         grads = torch.autograd.grad(out, (q, k, v), g)
-        # dense strides: a DTensor made of these shards (``_flash_on_shards``) assumes them
         return (*(t.contiguous() for t in grads), None)
 
 
 def _flash_pallas_cv(q, k, v, causal: bool):
-    from torch.distributed.tensor import DTensor
-
-    if isinstance(q, DTensor):
-        return _flash_on_shards(q, k, v, causal)
     return _FlashKernelFn.apply(q, k, v, causal)
 
 
-def _flash_on_shards(q, k, v, causal: bool):
-    """The kernel on each rank's shards of DTensor q, k, v (``local_map``).
-    Attention is independent per (batch row, head), so with the batch split
-    over the data axes and the heads over `model` (the placements the specs
-    give the projections' outputs) each rank runs the kernel on its rows and
-    heads; query head h reads kv head h // G, so the kv heads must split
-    over `model` as evenly as the query heads."""
-    from torch.distributed.tensor import Shard
-    from torch.distributed.tensor.experimental import local_map
+def _on_shards(q, k, v, fn):
+    """``fn(q, k, v)`` on each rank's shards of DTensor q, k, v (B, H, S, d)
+    (``local_map``), the attention's fixed lowering on a mesh.  Attention is
+    independent per (batch row, head): the batch rows split over the axes
+    the specs split a batch of B over (``sharding.batch_shardable``), the
+    heads over `model` where the kv heads divide it (query head h reads kv
+    head h // G, and the query heads split as evenly), else every `model`
+    rank takes them all.  DTensor's own strategies for the batched products
+    inside would otherwise choose, op by op, by the torch release's cost
+    model: with the batch over two mesh axes and the heads over a third, the
+    flattened (batch x head) dim of the scores is sharded three ways, and
+    they gather it whole."""
+    from torch.distributed.tensor import Replicate, Shard
 
     mesh = q.device_mesh
-    names = mesh.mesh_dim_names
-    m = mesh.size(names.index("model")) if "model" in names else 1
-    if k.shape[1] % m:
-        raise ValueError(f"the flash kernel on a mesh needs the {k.shape[1]} kv heads to split "
-                         f"over the {m} ranks of `model`")
-    if m > 1 and torch.is_grad_enabled():
-        # DTensor (torch 2.13) then views a non-dense local gradient in the
-        # rope's backward and fails; the plain path has no such view
-        raise NotImplementedError("the flash kernel on DTensors under autograd needs a `model` "
-                                  "axis of one rank; take use_pallas='never' on wider meshes")
-    pl = [Shard(1) if name == "model" else Shard(0) for name in names]
-    fn = local_map(lambda q, k, v: _FlashKernelFn.apply(q, k, v, causal),
-                   out_placements=pl, in_placements=(pl, pl, pl), device_mesh=mesh,
-                   redistribute_inputs=True)
-    return fn(q, k, v)
+    heads = Shard(1) if k.shape[1] % shd.mesh_axis_size(mesh, "model") == 0 else Replicate()
+    pl = shd.with_model(mesh, shd.row_placements(mesh, q.shape[0]), heads)
+    return shd.on_shards(fn, mesh, (pl, pl, pl), pl)(q, k, v)
 
 
 def _flash_reference(q, k, v, causal):
@@ -169,7 +157,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     When ``cfg.use_pallas`` resolves true and the shape qualifies (no
     window/offset, same qk/v dims, 128-aligned), dispatches to the
     hand-written flash kernel (``repro_torch.kernels.flash_attn``).
+
+    On DTensors each rank runs this on its shards (``_on_shards``).
     """
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        return _on_shards(q, k, v, lambda q, k, v: flash_attention(
+            q, k, v, causal=causal, window=window, chunk=chunk, q_offset=q_offset, cfg=cfg,
+            _allow_pallas=_allow_pallas))
     if (_allow_pallas and cfg is not None and use_pallas(cfg, q)
             and window == 0 and q_offset == 0
             and q.shape[-1] == v.shape[-1]
@@ -296,8 +292,8 @@ def _mla_qkv(params, x, cfg: ModelConfig, pos):
     q = (x @ params["w_q"]).reshape(B, S, H, hd + R).transpose(1, 2)
     q_nope, q_rope = q[..., :hd], q[..., hd:]
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
-    c_kv = rms_norm(x @ params["w_dkv"], params["ln_kv"], cfg.norm_eps)
-    k_rope = apply_rope((x @ params["w_kr"])[:, None], pos, cfg.rope_theta)[:, 0]
+    c_kv = rms_norm(shd.constrain_rows(x @ params["w_dkv"]), params["ln_kv"], cfg.norm_eps)
+    k_rope = shd.constrain_rows(apply_rope((x @ params["w_kr"])[:, None], pos, cfg.rope_theta)[:, 0])
     return q_nope, q_rope, c_kv, k_rope
 
 

@@ -31,6 +31,7 @@ from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (Params, _device_of, chunked_softmax_xent, dense_init,
                                        embed_init, init_mlp, mlp, rms_norm, torch_dtype)
+from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import lookup
 from repro_torch.utils.tree import tree_map
 
@@ -102,20 +103,20 @@ def _layer_forward(lp: Params, x, cfg: ModelConfig, mixer: str, use_moe: bool):
         a, cache = attn_lib.gqa_forward(lp["attn"], h, cfg)
     else:
         a, cache = mamba_lib.mamba_mixer(lp["ssm"], h, cfg)
-    x = x + a
+    x = x + shd.constrain_rows(a)
     h = rms_norm(x, lp["ln2"]["w"], cfg.norm_eps)
     if use_moe:
         m, aux = moe_lib.moe_block(lp["moe"], h, cfg)
     else:
         m, aux = mlp(lp["mlp"], h), {}
-    return x + m, aux, cache
+    return x + shd.constrain_rows(m), aux, cache
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, want_cache: bool = False):
     """tokens: (B, S) int -> (hidden (B, S, D), aux loss, caches).  With
     ``want_cache`` the caches are ``{"l<i>": {...}}``, each leaf stacked over
     the super-blocks; the super-blocks then run without checkpointing."""
-    x = lookup(params["embed"]["w"], tokens)
+    x = shd.constrain_rows(lookup(params["embed"]["w"], tokens))
     layout = block_layout(cfg)
     aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
 

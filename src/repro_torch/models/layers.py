@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from repro_torch.parallel.sharding import row_placements
 from repro_torch.utils.tree import tree_leaves
 
 Params = Dict[str, Any]
@@ -141,15 +142,72 @@ def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
 # losses
 # ---------------------------------------------------------------------------
 
+class _ShardedXent(torch.autograd.Function):
+    """The summed cross-entropy of a chunk of DTensor logits (B, chunk, V),
+    the rows placed as the batch and the vocab split over `model` (the
+    vocab-parallel loss): each rank takes the max, the sum of exponentials
+    and the target logit over its own columns, and only those (B, chunk)
+    values cross `model`.  The backward, softmax minus one-hot, is local.
+    DTensor's own rules for ``logsumexp``, ``gather`` and their backwards
+    gather the logits whole or move them between layouts."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, valid_vocab: int):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        mesh, names = logits.device_mesh, logits.device_mesh.mesh_dim_names
+        rows = row_placements(mesh, logits.shape[0])
+        cols = [Shard(logits.dim() - 1) if n == "model" else p for n, p in zip(names, rows)]
+        logits = logits.redistribute(mesh, cols)
+        local = logits.to_local()
+        lo = compute_local_shape_and_global_offset(logits.shape, mesh, cols)[1][-1]
+        if valid_vocab and valid_vocab < logits.shape[-1]:
+            col = lo + torch.arange(local.shape[-1], device=local.device)
+            local = local.masked_fill(col >= valid_vocab, -1e30)
+
+        def over_model(t, op):
+            pend = [Partial(op) if n == "model" else p for n, p in zip(names, rows)]
+            return DTensor.from_local(t, mesh, pend, run_check=False).redistribute(
+                mesh, rows).to_local()
+
+        mx = over_model(local.amax(dim=-1), "max")
+        e = torch.exp(local - mx[..., None])
+        se = over_model(e.sum(dim=-1), "sum")
+        lbl = labels.redistribute(mesh, rows).to_local().long()
+        inside = (lbl >= lo) & (lbl < lo + local.shape[-1])
+        idx = torch.where(inside, lbl - lo, torch.zeros_like(lbl))
+        tgt = over_model(torch.where(inside, torch.gather(local, -1, idx[..., None])[..., 0],
+                                     torch.zeros_like(mx)), "sum")
+        ctx.save_for_backward(e / se[..., None], idx, inside)
+        ctx.layout = (mesh, cols, logits.shape, logits.stride())
+        out = [Partial() if p.is_shard() else Replicate() for p in rows]
+        return DTensor.from_local((torch.log(se) + mx - tgt).sum(), mesh, out, run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        p, idx, inside = ctx.saved_tensors
+        mesh, cols, shape, stride = ctx.layout
+        g = g.full_tensor() if isinstance(g, DTensor) else g
+        grad = p.scatter_add(-1, idx[..., None], -inside[..., None].to(p.dtype)) * g
+        return DTensor.from_local(grad, mesh, cols, run_check=False, shape=shape,
+                                  stride=stride), None, None
+
+
 def chunked_softmax_xent(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
                          chunk: int = 512, valid_vocab: int = 0) -> torch.Tensor:
     """Cross-entropy over a huge vocab without materializing (B, S, V).
 
     x: (B, S, D) final hidden states; lm_head: (D, V); labels: (B, S) int.
     Walks S in blocks of ``chunk``; each block computes logits, the
-    logsumexp and the target logit.  ``valid_vocab``: logits of padded vocab
-    columns >= this are masked to -1e30 (0 = all valid).  Mean over B*S.
+    logsumexp and the target logit (on DTensors, ``_ShardedXent``).
+    ``valid_vocab``: logits of padded vocab columns >= this are masked to
+    -1e30 (0 = all valid).  Mean over B*S.
     """
+    from torch.distributed.tensor import DTensor
+
     B, S, D = x.shape
     V = lm_head.shape[-1]
     vocab_mask = (torch.arange(V, device=x.device) >= valid_vocab
@@ -162,6 +220,9 @@ def chunked_softmax_xent(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.T
         xc = x[:, start:start + chunk]
         lc = labels[:, start:start + chunk]
         logits = (xc @ lm_head).float()                           # (B, chunk, V)
+        if isinstance(logits, DTensor):
+            total = total + _ShardedXent.apply(logits, lc, valid_vocab)
+            continue
         if vocab_mask is not None:
             logits = logits.masked_fill(vocab_mask, -1e30)
         lse = torch.logsumexp(logits, dim=-1)

@@ -51,6 +51,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan import discretise, ssm_scan, ssm_scan_fused, ssm_scan_plain
 from repro_torch.models.attention import use_pallas
 from repro_torch.models.layers import Params, _device_of, dense_init, torch_dtype
+from repro_torch.parallel import sharding as shd
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -224,33 +225,63 @@ def _dt_proj(low, w_dt, dt_bias):
     On DTensors the specs split ``w_dt``'s and ``dt_bias``'s d_inner over
     `model`, and ``low`` comes out of a product over the `model`-split
     d_inner as a pending sum; it is reduced (small: dt_rank wide) and each
-    rank computes its slice of d_inner (``local_map``).  DTensor's own
-    choice for the add, a pending sum of the bias too, is one that some
+    rank computes its slice of d_inner (``sharding.on_shards``).  DTensor's
+    own choice for the add, a pending sum of the bias too, is one that some
     torch releases cannot carry out."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
 
     def proj(low, w_dt, dt_bias):
         return F.softplus((low @ w_dt).float() + dt_bias)
 
     if not isinstance(low, DTensor):
         return proj(low, w_dt, dt_bias)
-    names = low.device_mesh.mesh_dim_names
-    rows = [Replicate() if n == "model" else p if p.is_shard() else Replicate()
-            for n, p in zip(names, low.placements)]
-    fn = local_map(proj, out_placements=[Shard(2) if n == "model" else p
-                                         for n, p in zip(names, rows)],
-                   in_placements=(rows, [Shard(1) if n == "model" else Replicate() for n in names],
-                                  [Shard(0) if n == "model" else Replicate() for n in names]),
-                   device_mesh=low.device_mesh, redistribute_inputs=True)
+    mesh = low.device_mesh
+    rows = shd.row_placements(mesh, low.shape[0])
+    whole = [Replicate()] * mesh.ndim
+    fn = shd.on_shards(proj, mesh, (rows, shd.with_model(mesh, whole, Shard(1)),
+                                    shd.with_model(mesh, whole, Shard(0))),
+                       shd.with_model(mesh, rows, Shard(2)))
     return fn(low, w_dt, dt_bias)
+
+
+def _scan(cfg: ModelConfig, kernel: bool, dt, xs, b_t, c_t, a, h0):
+    """The selective scan from dt, x, B, C and A: (y, h_final); ``h0`` None:
+    zeros."""
+    if h0 is None:
+        h0 = torch.zeros((xs.shape[0], xs.shape[2], a.shape[-1]), dtype=torch.float32,
+                         device=xs.device)
+    if kernel and not cfg.bf16_stream:
+        return _SSMFusedFn.apply(dt, xs, b_t, c_t, a, h0, cfg.ssm.chunk_size)
+    return _scan_formed(cfg, kernel, *discretise(dt, xs, b_t, a), c_t, h0)
+
+
+def _scan_on_shards(cfg: ModelConfig, kernel: bool, dt, xs, b_t, c_t, a, h0):
+    """``_scan``; on DTensors each rank on its batch rows
+    (``sharding.row_placements``) and, where d_inner divides `model`, its
+    channels (``sharding.on_shards``): the scan is independent per (row,
+    channel), and DTensor's own strategies for its products would flatten
+    (row, channel) into a dim the pod mesh shards three ways."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(xs, DTensor):
+        return _scan(cfg, kernel, dt, xs, b_t, c_t, a, h0)
+    mesh = xs.device_mesh
+    split = xs.shape[2] % shd.mesh_axis_size(mesh, "model") == 0
+    rows = shd.row_placements(mesh, xs.shape[0])
+    seq = shd.with_model(mesh, rows, Shard(2) if split else Replicate())      # (B, S, di)
+    st = shd.with_model(mesh, rows, Shard(1) if split else Replicate())       # (B, di, n)
+    ch = shd.with_model(mesh, [Replicate()] * len(rows), Shard(0) if split else Replicate())
+    if h0 is not None and not isinstance(h0, DTensor):
+        h0 = DTensor.from_local(h0, mesh, [Replicate()] * len(rows), run_check=False)
+    fn = shd.on_shards(lambda *t: _scan(cfg, kernel, *t), mesh,
+                       (seq, seq, rows, rows, ch, st if h0 is not None else None), (seq, st))
+    return fn(dt, xs, b_t, c_t, a, h0)
 
 
 def mamba_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 state: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence mixer.  x: (B, S, D) -> (out (B, S, D), final state)."""
-    B, S, D = x.shape
     di, dt_rank, n, d_conv = dims(cfg)
     xz = x @ params["w_in"]                              # (B, S, 2*di)
     xs, z = xz[..., :di], xz[..., di:]
@@ -264,13 +295,8 @@ def mamba_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig,
     c_t = bcdt[..., dt_rank + n:].float()
 
     a = -torch.exp(params["a_log"])                      # (di, n)
-    h0 = (state["ssm"] if state is not None
-          else torch.zeros((B, di, n), dtype=torch.float32, device=x.device))
-    kernel = use_pallas(cfg, x)
-    if kernel and not cfg.bf16_stream:
-        y, h_final = _SSMFusedFn.apply(dt, xs, b_t, c_t, a, h0, cfg.ssm.chunk_size)
-    else:
-        y, h_final = _scan_formed(cfg, kernel, *discretise(dt, xs, b_t, a), c_t, h0)
+    h0 = state["ssm"] if state is not None else None
+    y, h_final = _scan_on_shards(cfg, use_pallas(cfg, x), dt, xs, b_t, c_t, a, h0)
     y = y.float() + params["d_skip"] * xs.float()
     y = y.to(x.dtype) * F.silu(z)
     out = y @ params["w_out"]

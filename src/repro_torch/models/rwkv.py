@@ -37,6 +37,7 @@ from repro_torch.kernels.wkv import wkv, wkv_plain
 from repro_torch.models.attention import use_pallas
 from repro_torch.models.layers import (Params, _device_of, chunked_softmax_xent, dense_init,
                                        embed_init, rms_norm, torch_dtype)
+from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import lookup
 from repro_torch.utils.tree import tree_map
 
@@ -145,6 +146,40 @@ class _WkvKernelFn(torch.autograd.Function):
         return (*grads, None)
 
 
+def _wkv_any(r, k, v, logw, u, s0, chunk: int, kernel: bool):
+    """The recurrence on the kernel or the chunked form; ``s0`` None: zeros."""
+    if s0 is None:
+        B, _, H, hd = r.shape
+        s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if kernel:
+        return _WkvKernelFn.apply(r, k, v, logw, u, s0, chunk)
+    return wkv_chunked(r, k, v, logw, u, s0, chunk)
+
+
+def _wkv_on_shards(r, k, v, logw, u, s0, chunk: int, kernel: bool):
+    """``_wkv_any``; on DTensors each rank on its batch rows
+    (``sharding.row_placements``) and, where the heads divide `model`, its
+    heads (``sharding.on_shards``).  The recurrence is independent per (row,
+    head); DTensor's own strategies for its batched products flatten (row,
+    head) into one dim that the pod mesh shards three ways, and gather it
+    whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(r, DTensor):
+        return _wkv_any(r, k, v, logw, u, s0, chunk, kernel)
+    mesh = r.device_mesh
+    split = r.shape[2] % shd.mesh_axis_size(mesh, "model") == 0
+    rows = shd.row_placements(mesh, r.shape[0])
+    seq = shd.with_model(mesh, rows, Shard(2) if split else Replicate())      # (B, S, H, hd)
+    st = shd.with_model(mesh, rows, Shard(1) if split else Replicate())       # (B, H, hd, hd)
+    hu = shd.with_model(mesh, [Replicate()] * len(rows), Shard(0) if split else Replicate())
+    if s0 is not None and not isinstance(s0, DTensor):     # a zero state the model built
+        s0 = DTensor.from_local(s0, mesh, [Replicate()] * len(rows), run_check=False)
+    fn = shd.on_shards(lambda r, k, v, w, u, s: _wkv_any(r, k, v, w, u, s, chunk, kernel), mesh,
+                       (seq, seq, seq, seq, hu, st if s0 is not None else None), (seq, st))
+    return fn(r, k, v, logw, u, s0)
+
+
 # ---------------------------------------------------------------------------
 # mixers
 # ---------------------------------------------------------------------------
@@ -155,7 +190,7 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 
 
 def _decay(params: Params, xw: torch.Tensor) -> torch.Tensor:
-    lora = torch.tanh(xw @ params["w_decay_lora_a"]) @ params["w_decay_lora_b"]
+    lora = shd.constrain_rows(torch.tanh(xw @ params["w_decay_lora_a"])) @ params["w_decay_lora_b"]
     return -torch.exp(params["w_decay"] + lora.float())               # logw <= 0
 
 
@@ -182,12 +217,8 @@ def time_mix(params: Params, x: torch.Tensor, cfg: ModelConfig,
     g = F.silu(mg @ params["w_g"])
     logw = _decay(params, mw).reshape(B, S, H, hd)
     u = params["u_bonus"].reshape(H, hd)
-    s0 = (state["state"] if state is not None
-          else torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device))
-    if use_pallas(cfg, x):
-        y, s_final = _WkvKernelFn.apply(r, k, v, logw, u, s0, cfg.ssm.chunk_size)
-    else:
-        y, s_final = wkv_chunked(r, k, v, logw, u, s0, cfg.ssm.chunk_size)
+    s0 = state["state"] if state is not None else None
+    y, s_final = _wkv_on_shards(r, k, v, logw, u, s0, cfg.ssm.chunk_size, use_pallas(cfg, x))
     y = _group_norm(y, params["ln_x"].float(), H)
     out = (y.to(x.dtype) * g) @ params["w_o"]
     return out, {"state": s_final, "tm_x": x[:, -1]}
@@ -209,10 +240,10 @@ def _block(bp: Params, x: torch.Tensor, cfg: ModelConfig, state=None):
     tm_state = ({"state": state["state"], "tm_x": state["tm_x"]}
                 if state is not None else None)
     a, tm_new = time_mix(bp["rwkv"], rms_norm(x, bp["ln1"]["w"], cfg.norm_eps), cfg, tm_state)
-    x = x + a
+    x = x + shd.constrain_rows(a)
     cm_state = {"cm_x": state["cm_x"]} if state is not None else None
     c, cm_new = channel_mix(bp["cmix"], rms_norm(x, bp["ln2"]["w"], cfg.norm_eps), cm_state)
-    return x + c, {**tm_new, **cm_new}
+    return x + shd.constrain_rows(c), {**tm_new, **cm_new}
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +256,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     None).  A Python loop over the stacked layers (``lax.scan`` in JAX),
     each under ``torch.utils.checkpoint`` with ``cfg.remat`` while
     gradients are recorded."""
-    x = lookup(params["embed"]["w"], tokens)
+    x = shd.constrain_rows(lookup(params["embed"]["w"], tokens))
     if state is None:
         B = tokens.shape[0]
         H, hd = head_dims(cfg)

@@ -26,7 +26,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (Params, _device_of, chunked_softmax_xent, dense_init,
                                        embed_init, init_mlp, mlp, rms_norm, torch_dtype)
-from repro_torch.parallel.sharding import lookup, stacked_empty
+from repro_torch.parallel.sharding import constrain_rows, lookup, stacked_empty
 from repro_torch.utils.tree import tree_map
 
 
@@ -98,13 +98,13 @@ def _block_forward(bp: Params, x: torch.Tensor, cfg: ModelConfig, use_moe: bool,
     """One transformer layer.  Returns (x, aux, cache)."""
     attend = attn_lib.mla_forward if cfg.attention == "mla" else attn_lib.gqa_forward
     a, cache = attend(bp["attn"], rms_norm(x, bp["ln1"]["w"], cfg.norm_eps), cfg, q_offset)
-    x = x + a
+    x = x + constrain_rows(a)
     h = rms_norm(x, bp["ln2"]["w"], cfg.norm_eps)
     if use_moe:
         m, aux = moe_lib.moe_block(bp["moe"], h, cfg)
     else:
         m, aux = mlp(bp["mlp"], h), {}
-    return x + m, aux, cache
+    return x + constrain_rows(m), aux, cache
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -120,6 +120,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     x = lookup(params["embed"]["w"], tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x = constrain_rows(x)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {}
 

@@ -32,7 +32,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.layers import (Params, _device_of, chunked_softmax_xent, dense_init,
                                        embed_init, init_mlp, rms_norm, torch_dtype)
-from repro_torch.parallel.sharding import lookup
+from repro_torch.parallel.sharding import constrain_rows, lookup
 from repro_torch.utils.tree import tree_map
 
 
@@ -115,10 +115,10 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tens
         k = _mm(h, bp["attn"]["wk"]).reshape(B, S, KV, hd).transpose(1, 2)
         v = _mm(h, bp["attn"]["wv"]).reshape(B, S, KV, hd).transpose(1, 2)
         a = flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-        x = x + _mm(a.transpose(1, 2).reshape(B, S, H * hd), bp["attn"]["wo"])
-        return x + _mlp(bp["mlp"], rms_norm(x, bp["ln2"]["w"], cfg.norm_eps))
+        x = x + constrain_rows(_mm(a.transpose(1, 2).reshape(B, S, H * hd), bp["attn"]["wo"]))
+        return x + constrain_rows(_mlp(bp["mlp"], rms_norm(x, bp["ln2"]["w"], cfg.norm_eps)))
 
-    x = frames
+    x = constrain_rows(frames)
     for bp in _layers(params["enc_blocks"], cfg.encoder_layers):
         if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(body, x, bp, use_reentrant=False, preserve_rng_state=False)
@@ -151,10 +151,11 @@ def _cross_attend(bp: Params, h, xk, xv, cfg: ModelConfig):
 
 def _dec_block(bp: Params, x, enc_out, cfg: ModelConfig):
     a, cache = attn_lib.gqa_forward(bp["attn"], rms_norm(x, bp["ln1"]["w"], cfg.norm_eps), cfg)
-    x = x + a
+    x = x + constrain_rows(a)
     xk, xv = _cross_kv(bp["xattn"], enc_out, cfg)
-    x = x + _cross_attend(bp["xattn"], rms_norm(x, bp["lnx"]["w"], cfg.norm_eps), xk, xv, cfg)
-    x = x + _mlp(bp["mlp"], rms_norm(x, bp["ln2"]["w"], cfg.norm_eps))
+    x = x + constrain_rows(_cross_attend(bp["xattn"], rms_norm(x, bp["lnx"]["w"], cfg.norm_eps),
+                                         xk, xv, cfg))
+    x = x + constrain_rows(_mlp(bp["mlp"], rms_norm(x, bp["ln2"]["w"], cfg.norm_eps)))
     return x, {**cache, "xk": xk, "xv": xv}
 
 
@@ -163,7 +164,7 @@ def decode_stack(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
     """The decoder over whole sequences: (hidden, caches).  With
     ``want_cache`` the caches are ``{k, v}`` (L, B, S, KV, hd) and ``{xk,
     xv}`` (L, B, Se, KV, hd), and the layers run without checkpointing."""
-    x = lookup(params["embed"]["w"], tokens)
+    x = constrain_rows(lookup(params["embed"]["w"], tokens))
     caches = []
     for bp in _layers(params["dec_blocks"], cfg.num_layers):
         if want_cache:

@@ -222,6 +222,99 @@ def data_batch_spec(mesh, batch: int) -> Spec:
     return (axes, None) if axes else (None, None)
 
 
+def row_placements(mesh, batch: int) -> List[Any]:
+    """Placements of an activation whose dim 0 is a batch of ``batch`` rows:
+    ``Shard(0)`` on the axes the batch splits over (``batch_shardable``),
+    ``Replicate()`` on the others, `model` among them."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    rows = batch_shardable(mesh, batch) or ()
+    return [Shard(0) if n in rows else Replicate() for n in mesh.mesh_dim_names]
+
+
+class _GradLikeInput(torch.autograd.Function):
+    """The identity, whose backward lays the gradient out in memory as the
+    input was: ``local_map`` wraps a local gradient in a DTensor that
+    claims the forward input's strides, and a later view of it (the
+    backward of the reshape that made a transposed input) would read memory
+    laid out otherwise in the wrong order."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.layout = (x.shape, x.stride())
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.new_empty_strided(*ctx.layout).copy_(g)
+
+
+def on_shards(fn, mesh, in_placements, out_placements):
+    """``fn`` run by each rank on its local shards of its DTensor arguments,
+    redistributed first to ``in_placements`` (``local_map``; ``None`` for an
+    argument that is not a tensor), its outputs placed by
+    ``out_placements``: a fixed lowering where DTensor's per-op strategy
+    choice would not keep the specs' layout.
+
+    Gradients flow through.  An argument that is whole on a mesh axis over
+    which another argument is split (a weight beside a batch split over
+    `data`, the shared B and C of a scan split by channel over `model`) is
+    used by every rank for its own share of the work: its gradient is a
+    pending sum (``Partial``) over that axis."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    placed = [pl for pl in in_placements if pl is not None]
+    split = [any(pl[i].is_shard() for pl in placed) for i in range(mesh.ndim)]
+    grads = tuple(None if pl is None else
+                  [Partial() if split[i] and not p.is_shard() else p for i, p in enumerate(pl)]
+                  for pl in in_placements)
+
+    def local(*args):
+        return fn(*(_GradLikeInput.apply(a) if isinstance(a, torch.Tensor) and a.requires_grad
+                    else a for a in args))
+    return local_map(local, out_placements=out_placements, in_placements=tuple(in_placements),
+                     in_grad_placements=grads, device_mesh=mesh, redistribute_inputs=True)
+
+
+def with_model(mesh, placements, p) -> List[Any]:
+    """``placements`` on ``mesh`` with the `model` axis's entry ``p``."""
+    return [p if n == "model" else q for n, q in zip(mesh.mesh_dim_names, placements)]
+
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``, and its gradient too (the
+    transpose of a sharding constraint is the same constraint).  DTensor's
+    own ``redistribute`` sends the gradient back to the input's placements,
+    a pending sum among them, and the products of the backward then gather
+    weights to multiply that pending sum whole."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None
+
+
+def constrain_rows(x):
+    """``x`` placed by ``row_placements``, a pending sum reduced, and its
+    gradient placed so too: the residual stream's layout between the
+    layers, as the specs give it (batch over the data axes, features whole
+    on every `model` rank; the counterpart of
+    ``with_sharding_constraint(x, P(batch_axes))``).  DTensor alone picks
+    each op's output layout by its cost model, and moves the batch onto
+    `model` too where that is cheaper for one op.  Plain tensors pass
+    through."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return _Constrain.apply(x, tuple(row_placements(x.device_mesh, x.shape[0])))
+
+
 def cache_pspec(cfg: ModelConfig, mesh, batch: int, leaf_path: Tuple[str, ...],
                 ndim: int) -> Spec:
     """Decode-cache sharding.
@@ -309,28 +402,23 @@ def stacked_empty(val, n: int):
 def lookup(table, tokens):
     """``table[tokens]``, the embedding lookup.
 
-    On DTensors each rank looks up its own tokens' rows (``local_map``) in
+    On DTensors each rank looks up its own tokens' rows (``on_shards``) in
     the table gathered over every mesh axis but `model`, which keeps its
     slice of the embedding dim; the table's gradient is then a partial sum
     over the axes the tokens split.  DTensor's own rules for ``index`` and
     its backward ``index_put`` cannot take a batch split over two mesh axes
     (``("pod", "data")``) in every torch release."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
     if not isinstance(table, DTensor):
         return table[tokens.long()]
-    names = table.device_mesh.mesh_dim_names
+    mesh = table.device_mesh
     tok = list(tokens.placements)
-    if any(p.is_shard() for n, p in zip(names, tok) if n == "model"):
+    if any(p.is_shard() for n, p in zip(mesh.mesh_dim_names, tok) if n == "model"):
         raise ValueError("lookup takes tokens replicated over `model`")
-    tab = [Shard(1) if n == "model" else Replicate() for n in names]
-    out = [Shard(tokens.dim()) if n == "model" else p for n, p in zip(names, tok)]
-    grad = [Shard(1) if n == "model" else Partial() if p.is_shard() else Replicate()
-            for n, p in zip(names, tok)]
-    fn = local_map(lambda t, i: t[i.long()], out_placements=out, in_placements=(tab, tok),
-                   in_grad_placements=(grad, tok), device_mesh=table.device_mesh,
-                   redistribute_inputs=True)
+    tab = with_model(mesh, [Replicate()] * mesh.ndim, Shard(1))
+    fn = on_shards(lambda t, i: t[i.long()], mesh, (tab, tok),
+                   with_model(mesh, tok, Shard(tokens.dim())))
     return fn(table, tokens)
 
 

@@ -6,7 +6,9 @@ tests/_torch_mesh_worker.py OUT_DIR``.  Every rank builds the same smoke
 stablelm parameters and batch from seeds (``inputs``, shared with the
 test), places them by the specs' DTensor placements, reads them back with
 ``full_tensor()``, and takes one ``make_step_fn(api, "train", opt)`` step
-on the mesh.  It writes what it saw to ``OUT_DIR/rank<r>.pt``.
+on the mesh, and the same step of one smoke model of each other family
+(``FAMILY_ARCHS``) on the (2, 2) mesh.  It writes what it saw to
+``OUT_DIR/rank<r>.pt``.
 """
 import os
 import sys
@@ -18,18 +20,56 @@ import torch
 ARCH, B, S, SEED = "stablelm-3b", 4, 128, 0       # S: a multiple of 128, the kernel's condition
 
 
-def inputs():
-    """(api, params, batch) of the smoke model, float32, from seeds."""
+# one smoke model of each family the dry run's fixed lowering touches beyond
+# the dense decoder: MoE experts on shards, MLA, the WKV recurrence, the
+# Mamba scan with MoE, and Whisper's encoder and cross-attention
+FAMILY_ARCHS = ("moonshot-v1-16b-a3b", "deepseek-v2-236b", "rwkv6-1.6b", "jamba-v0.1-52b",
+                "whisper-base")
+FAMILY_S = 64
+
+
+def inputs(arch: str = ARCH, seq: int = S):
+    """(api, params, batch) of the smoke model, float32, from seeds; the
+    other families take a sequence of ``FAMILY_S``."""
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models.registry import get_model
 
-    cfg = get_config(ARCH).smoke()
+    cfg = get_config(arch).smoke()
     api = get_model(cfg)
     params = api.init(torch.Generator().manual_seed(SEED))
     gen = torch.Generator().manual_seed(SEED + 1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, dtype=torch.int32),
-             "labels": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, dtype=torch.int32)}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, seq), generator=gen, dtype=torch.int32),
+             "labels": torch.randint(0, cfg.vocab_size, (B, seq), generator=gen, dtype=torch.int32)}
+    if cfg.family == "encdec":
+        frames = SyntheticLM(cfg, type("S", (), {"global_batch": B, "seq_len": seq,
+                                                 "kind": "train"})(), seed=SEED).batch(0)["frames"]
+        batch["frames"] = torch.from_numpy(frames)
     return api, params, batch
+
+
+def train_on(mesh, arch: str = ARCH, use_pallas: str = "") -> dict:
+    """One ``make_step_fn(api, "train", opt)`` step of ``arch`` on ``mesh``,
+    from the seeds' parameters: the loss and the new parameters, whole."""
+    from repro_torch.launch import specs
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.utils.tree import tree_leaves
+
+    seq = S if arch == ARCH else FAMILY_S
+    api, params, batch = inputs(arch, seq)
+    if use_pallas:
+        api = get_model(api.cfg.replace(use_pallas=use_pallas))
+    opt = get_optimizer("adamw")
+    placed = specs.distribute(params, shd.param_specs(params, api.cfg), mesh)
+    state = specs.distribute(opt.init(params), specs.opt_state_specs(params, api.cfg, mesh), mesh)
+    shape = type("S", (), {"global_batch": B, "seq_len": seq, "kind": "train"})()
+    _, bspecs = specs.batch_specs(api.cfg, shape, mesh)
+    new_p, _, metrics = specs.make_step_fn(api, "train", opt)(
+        placed, state, specs.distribute(batch, bspecs, mesh))
+    return {"loss": metrics["loss"].full_tensor(),
+            "new_params": [t.full_tensor() for t in tree_leaves(new_p)]}
 
 
 DECODE_B, DECODE_W, DECODE_AT = 1, 16, 5
@@ -113,7 +153,11 @@ def on_mesh(out_dir: str) -> None:
         dbatch = specs.distribute(batch, bspecs, mesh)
         _, _, kmetrics = specs.make_step_fn(kapi, "train", opt)(placed, state, dbatch)
         out["kernel_route_loss"] = kmetrics["loss"].full_tensor()
-        out["decode"] = decode_on(make_mesh((2, 2), ("data", "model"), "cpu"))
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        out["decode"] = decode_on(mesh)
+        # the kernel's route with the heads split over `model` too
+        out["kernel_route_2x2"] = train_on(mesh, use_pallas="always")["loss"]
+        out["families"] = {arch: train_on(mesh, arch) for arch in FAMILY_ARCHS}
     finally:
         dist.destroy_process_group()
     torch.save(out, Path(out_dir) / f"rank{out['rank']}.pt")

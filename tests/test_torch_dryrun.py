@@ -100,6 +100,52 @@ def test_the_pod_mesh_splits_the_batch_over_pod_and_data():
     assert "pod" in rec["analyzed"]["collective_bytes_by_axis"]     # gradients cross pods
 
 
+def _param_bytes_a_device(cfg, mesh) -> int:
+    """The parameters' bytes one device holds on ``mesh``: each leaf split
+    over the mesh axes its spec names."""
+    params = get_model(cfg).init(None, device="meta")
+    sizes = shd.axis_sizes(mesh)
+    total = 0
+    for path, leaf in zip(tree_paths(params), tree_leaves(params)):
+        ways = 1
+        for entry in shd.param_specs(params, cfg)[path]:
+            for axis in (entry if isinstance(entry, tuple) else (entry,)):
+                ways *= sizes.get(axis, 1) if axis else 1
+        total += leaf.numel() * leaf.element_size() // ways
+    return total
+
+
+def test_the_pod_mesh_halves_a_full_width_train_step_and_moves_no_activation_over_pod():
+    """stablelm-3b at full width (2 of its 32 layers), train_4k: on 2x16x16
+    the batch of 256 splits over 32 ranks where 16x16 splits it over 16, and
+    nothing else changes, so each device's FLOPs halve.  The batch stays
+    split through the attention's batched products and the loss chunk
+    (``attention._on_shards``, ``layers._ShardedXent``): `pod` carries the
+    gradients' reductions and no gather larger than the parameters a device
+    holds (before the repair: 17.1x the FLOPs and 834 GB gathered over
+    `pod`).  Both counts equal the formula of
+    ``test_train_flops_on_one_device_are_the_matmuls_of_the_step`` over the
+    devices, the causal blocks above the diagonal skipped."""
+    cfg, _ = dryrun.resolve_cfg("stablelm-3b", "train_4k")
+    cfg = cfg.replace(num_layers=2)
+    shape = INPUT_SHAPES["train_4k"]
+    flat = dryrun.dryrun_cfg(cfg, shape, mesh_of(16, 16))
+    pod_mesh = mesh_of(2, 16, 16)
+    pod = dryrun.dryrun_cfg(cfg, shape, pod_mesh)
+    assert 0.45 <= pod["flops"] / flat["flops"] <= 0.55
+    every = _matmul_params(cfg, lambda p: True)
+    recomputed = _matmul_params(cfg, lambda p: p.startswith("blocks.") and p != "blocks.mlp.wo")
+    T, S, c = shape.global_batch * shape.seq_len, shape.seq_len, cfg.attn_chunk
+    blocks = (S // c) * (S // c + 1) // 2
+    attn_fwd = 2 * 2 * shape.global_batch * cfg.num_heads * c * c * cfg.head_dim * blocks * 2
+    want = 6 * every * T + 3 * attn_fwd + 2 * recomputed * T + attn_fwd
+    assert flat["flops"] == want // 256 and pod["flops"] == want // 512
+    by_axis = pod["analyzed"]["collective_bytes_by_axis"]
+    assert by_axis["pod"].get("all-gather", 0) <= _param_bytes_a_device(cfg, pod_mesh)
+    assert set(by_axis["pod"]) <= {"all-gather", "all-reduce", "reduce-scatter"}
+    assert by_axis["pod"]["all-reduce"] == by_axis["data"]["all-reduce"]   # the gradients
+
+
 def _matmul_params(cfg, path_ok):
     """Parameters of the matmuls whose key path passes ``path_ok``: leaves
     with a sharding rule (norms have none; the embedding is looked up)."""

@@ -84,6 +84,27 @@ print("BAD", bad)
 """
 
 
+_SLICE_13 = r"""
+import importlib.util, os, sys
+from pathlib import Path
+sys.path.insert(0, os.getcwd())                                  # examples/, benchmarks/
+sys.path.insert(0, os.path.join(os.getcwd(), "tests"))           # the port's seed engine
+files = ["examples/torch_train_e2e.py", "examples/torch_gradient_compression.py",
+         "examples/torch_serve_batch.py", "benchmarks/torch_figures.py", "benchmarks/torch_run.py",
+         "benchmarks/torch_sweep_bench.py", "tools/torch_profile_engine.py",
+         "tools/torch_check_docs.py", "tests/_torch_reference_engine.py"]
+for f in files:
+    spec = importlib.util.spec_from_file_location(Path(f).stem, f)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+from benchmarks import torch_sweep_bench
+torch_sweep_bench._stress_flows(jobs=1, n_chunks=2)               # its lazy imports too
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+print("IMPORTED", len(files))
+print("BAD", bad)
+"""
+
+
 def _run(code, env_extra=None):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO / "src")
@@ -109,6 +130,14 @@ def test_the_mesh_specs_dry_run_and_their_benches_import_alone():
     assert "BAD []" in proc.stdout
 
 
+def test_the_examples_harness_and_tools_import_alone():
+    """Slice 13's examples, benchmarks and tools (and the seed engine copy
+    they measure against) import neither JAX nor the JAX package."""
+    proc = _run(_SLICE_13)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "IMPORTED 9" in proc.stdout and "BAD []" in proc.stdout
+
+
 def test_kernels_import_and_plain_versions_run_without_nvcc_or_triton(tmp_path):
     # an empty PATH: no nvcc can be found even where one is installed
     proc = _run(_PLAIN_WITHOUT_TOOLCHAIN, {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path)})
@@ -119,7 +148,9 @@ def test_kernels_import_and_plain_versions_run_without_nvcc_or_triton(tmp_path):
 def _port_files():
     return (sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + [REPO / "chip_smoke.py"]
             + sorted((REPO / "benchmarks").glob("torch_*.py"))
-            + sorted((REPO / "examples").glob("torch_*.py")))
+            + sorted((REPO / "examples").glob("torch_*.py"))
+            + sorted((REPO / "tools").glob("torch_*.py"))
+            + [REPO / "tests" / "_torch_reference_engine.py"])
 
 
 _FORBIDDEN = [re.compile(r"^\s*import\s+jax\b"), re.compile(r"^\s*from\s+jax\b"),

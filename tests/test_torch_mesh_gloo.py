@@ -14,7 +14,11 @@ starts its ranks).
   of the step: AdamW's first step moves each element by about lr = 3e-4
   times m / sqrt(v), and for a gradient element near eps = 1e-8 that ratio
   depends on the last bits of the summed gradient, which the mesh sums in
-  another order."""
+  another order.
+- The same step of one smoke model of each other family the dry run's
+  fixed lowering touches (MoE, MLA, RWKV-6, Jamba, Whisper) on the (2, 2)
+  mesh, and the kernel's route with the heads split over `model`: the
+  single-process loss within 1e-5, the parameters as above."""
 import os
 import signal
 import subprocess
@@ -23,7 +27,7 @@ from pathlib import Path
 
 import pytest
 import torch
-from _torch_mesh_worker import DECODE_AT, decode_inputs, inputs
+from _torch_mesh_worker import DECODE_AT, FAMILY_ARCHS, FAMILY_S, decode_inputs, inputs
 
 from repro_torch.launch import specs
 from repro_torch.optim.optimizers import get_optimizer
@@ -33,7 +37,17 @@ from repro_torch.utils.tree import tree_leaves, tree_paths
 REPO = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "_torch_mesh_worker.py"
 K = 4
-TIME_LIMIT = 120          # seconds for the torchrun of four ranks (about 15 s on 8 idle cores)
+TIME_LIMIT = 300          # seconds for the torchrun of four ranks (about 30 s on 8 idle cores)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The single-process reference steps are small: one thread keeps them
+    from spinning against the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -88,6 +102,36 @@ def test_one_train_step_on_the_mesh_is_the_single_process_step(ranks):
         assert abs(float(r["kernel_route_loss"]) - want) <= 1e-5 * abs(want)
         for got, ref in zip(r["new_params"], tree_leaves(new_p)):
             torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_each_family_trains_on_the_mesh_as_in_one_process(ranks, arch):
+    """The dry run's fixed lowering, run for real on the (2, 2) mesh: the
+    residual stream held to rows (``sharding.constrain_rows``), the
+    attention, WKV, Mamba scan and MoE experts on each rank's shards
+    (``sharding.on_shards``; experts split over `model`, a pending sum
+    after), the vocab-parallel loss (``layers._ShardedXent``).  One step's
+    loss equals the single-process step's within 1e-5, its parameters as
+    the dense decoder's do."""
+    api, params, batch = inputs(arch, FAMILY_S)
+    opt = get_optimizer("adamw")
+    new_p, _, metrics = specs.make_step_fn(api, "train", opt)(params, opt.init(params), batch)
+    want = float(metrics["loss"])
+    for r in ranks:
+        got = r["families"][arch]
+        assert abs(float(got["loss"]) - want) <= 1e-5 * abs(want)
+        for a, b in zip(got["new_params"], tree_leaves(new_p)):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+def test_the_kernel_route_splits_heads_over_model(ranks):
+    """The flash kernel's route (its plain version on CPU shards) under
+    autograd with the heads split over a `model` axis of two ranks."""
+    api, params, batch = inputs()
+    opt = get_optimizer("adamw")
+    want = float(specs.make_step_fn(api, "train", opt)(params, opt.init(params), batch)[2]["loss"])
+    for r in ranks:
+        assert abs(float(r["kernel_route_2x2"]) - want) <= 1e-5 * abs(want)
 
 
 def test_a_decode_step_writes_its_slot_on_the_rank_that_holds_it(ranks):

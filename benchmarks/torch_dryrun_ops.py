@@ -8,12 +8,16 @@ find the ops whose placement DTensor chooses differently.
 
 Prints the step's per-device FLOPs and collective bytes by mesh axis, then
 one line per (op, local operand shapes): FLOPs a device, summed over the
-step.  Counts only, from meta shards: no time.
+step.  ``--out PATH`` also writes both lists as JSON, with one entry per
+(collective kind, mesh axis, local output shape, dtype): its count and
+bytes, so that two releases' runs can be diffed.  Counts only, from meta
+shards: no time.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import json
 import sys
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
@@ -28,10 +32,40 @@ from repro_torch.launch.mesh import make_production_mesh, open_fake_world  # noq
 from repro_torch.utils import step_analysis  # noqa: E402
 
 
-def flops_by_op(arch: str, shape: str, layers: int, multi_pod: bool) -> Tuple[Dict, Dict]:
-    """(the dry run's record, {(op, local shapes): FLOPs})."""
+def flops_by_op(arch: str, shape: str, layers: int, multi_pod: bool,
+                collectives: Optional[Dict] = None) -> Tuple[Dict, Dict]:
+    """(the dry run's record, {(op, local shapes): FLOPs}) of ``arch`` at
+    ``layers`` (0: its depth) on a production mesh; ``collectives``, when
+    given, is filled with {(kind, axis, local shape, dtype): [count,
+    bytes]}."""
+    open_fake_world()
+    mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+    cfg, _ = dryrun.resolve_cfg(arch, shape)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    return ops_of(cfg, INPUT_SHAPES[shape], mesh, collectives)
+
+
+def ops_of(cfg, shape, mesh, collectives: Optional[Dict] = None) -> Tuple[Dict, Dict]:
+    """``flops_by_op`` of one config and input shape on a mesh."""
     acc: Dict[Tuple[str, tuple], float] = collections.Counter()
     record = step_analysis._Recorder.__torch_dispatch__
+    collective = step_analysis._Recorder._collective
+
+    def listing(self, name, args, out):
+        before = {a: dict(k) for a, k in self._by_axis.items()}
+        collective(self, name, args, out)
+        if collectives is None:
+            return
+        for axis, kinds in self._by_axis.items():
+            for kind, nbytes in kinds.items():
+                grown = nbytes - before.get(axis, {}).get(kind, 0.0)
+                if grown:
+                    t = step_analysis._tensors(out)[0]
+                    entry = collectives.setdefault(
+                        (kind, axis, tuple(t.shape), str(t.dtype)), [0, 0.0])
+                    entry[0] += 1
+                    entry[1] += grown
 
     def counting(self, func, types, args=(), kwargs=None):
         before = self.out.flops
@@ -41,16 +75,13 @@ def flops_by_op(arch: str, shape: str, layers: int, multi_pod: bool) -> Tuple[Di
             acc[(str(func), shapes)] += self.out.flops - before
         return out
 
-    open_fake_world()
-    mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
-    cfg, _ = dryrun.resolve_cfg(arch, shape)
-    if layers:
-        cfg = cfg.replace(num_layers=layers)
     step_analysis._Recorder.__torch_dispatch__ = counting
+    step_analysis._Recorder._collective = listing
     try:
-        rec = dryrun.dryrun_cfg(cfg, INPUT_SHAPES[shape], mesh)
+        rec = dryrun.dryrun_cfg(cfg, shape, mesh)
     finally:
         step_analysis._Recorder.__torch_dispatch__ = record
+        step_analysis._Recorder._collective = collective
     return rec, dict(acc)
 
 
@@ -62,8 +93,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--layers", type=int, default=0, help="depth (0: the config's)")
     ap.add_argument("--multi-pod", action="store_true", help="the 2x16x16 mesh")
     ap.add_argument("--top", type=int, default=40)
+    ap.add_argument("--out", default=None, help="write the op and collective lists as JSON")
     args = ap.parse_args(argv)
-    rec, ops = flops_by_op(args.arch, args.shape, args.layers, args.multi_pod)
+    colls: Dict = {}
+    rec, ops = flops_by_op(args.arch, args.shape, args.layers, args.multi_pod, colls)
+    if args.out:
+        Path(args.out).write_text(json.dumps({
+            "torch": torch.__version__, "record": rec,
+            "ops": sorted([op, [list(s) for s in shapes], f] for (op, shapes), f in ops.items()),
+            "collectives": sorted([k, a, list(s), d, n, b]
+                                  for (k, a, s, d), (n, b) in colls.items())}, indent=1))
     print(f"{args.arch} {args.shape} @ {rec['mesh']} (torch {torch.__version__}): "
           f"{rec['flops']:.4e} FLOPs a device; collective bytes by axis "
           f"{rec['analyzed']['collective_bytes_by_axis']}")

@@ -84,17 +84,26 @@ through their entry points:
   ``benchmarks/torch_roofline.py``'s table of it; ``launch.train.main`` on
   deepseek-coder-33b (4 layers), internvl2-2b and whisper-base (full depth),
   int8, against plain runs; and one full-width MLA block of
-  deepseek-v2-236b, forward and backward in bf16, against float64. [32]
-  also checks that every train_4k traced on both meshes counts, per
-  device, 0.45-0.55 of 16x16's FLOPs on 2x16x16 and gathers over `pod` no
-  more than its bf16 parameters a device;
+  deepseek-v2-236b, forward and backward in bf16, against float64. [31]
+  also runs the specs' step once under ``seq_parallel="data"`` (the same
+  loss on one rank). [32] also checks that every train_4k traced on both
+  meshes counts, per device, 0.45-0.55 of 16x16's FLOPs on 2x16x16 and
+  gathers over `pod` no more than its bf16 parameters a device, and that
+  every combination's FLOPs and collective bytes by kind and axis equal the
+  committed ``artifacts/dryrun/torch_results.json`` (traced on a CPU under
+  another torch release);
 - last (phase 37), ``examples/torch_train_e2e.main``: repro-100m (the
   reference example's ~100M float32 decoder), S 256, batch 4, 300 steps
   under each of none, fp16, int8, ternary and topk, every loss falling and
   fp16 within 0.15 of none, the first 3 steps of none and int8 against the
   plain versions; then ``examples/torch_gradient_compression.main``,
   ``examples/torch_serve_batch.main`` and ``benchmarks/torch_run.py`` (a
-  subprocess that must exit 0) on the card.
+  subprocess that must exit 0) on the card;
+- last (phase 38), ``remat_policy="dots"`` against "full": stablelm-3b at
+  full width and depth through ``launch.train.main`` (int8, 5 steps) under
+  "dots", held to phase 4's run of the same arguments under the config's
+  "full": the median step, peak memory and flash launches of each and the
+  same losses.
 
 Launch counters, reset right before each run and read right after, show
 that the run went through the kernels.
@@ -1935,6 +1944,7 @@ def phase_specs_step(phase4: dict, card: str) -> dict:
         kern = spec_step_run(cfg, shape, mesh, batches, SPEC_STEPS)
         plain = spec_step_run(cfg.replace(use_pallas="never"), shape, mesh, batches,
                               SPEC_PLAIN_STEPS)
+        seq = spec_step_run(cfg.replace(seq_parallel="data"), shape, mesh, batches, 1)
         t0 = time.perf_counter()
         rec = dryrun.dryrun_cfg(cfg, shape, mesh)
         trace_s = time.perf_counter() - t0
@@ -1950,6 +1960,12 @@ def phase_specs_step(phase4: dict, card: str) -> dict:
         print(f"  step {i}: kernels {kern['losses'][i]:.5f} vs plain {plain['losses'][i]:.5f} "
               f"(rel diff {rel:.2e}, tolerance 2e-2: bf16 model)")
         check(rel <= 2e-2, "the specs' step on the kernels and on the plain versions disagree")
+    rel = abs(seq["losses"][0] - kern["losses"][0]) / abs(kern["losses"][0])
+    print(f"  seq_parallel=\"data\" (the residual stream held with S over `model`, a rank of one "
+          f"here): step-0 loss {seq['losses'][0]:.6f} vs {kern['losses'][0]:.6f} (rel diff "
+          f"{rel:.2e}, tolerance 1e-6: the same arithmetic on one rank), step "
+          f"{seq['times'][0]:.3f} s, peak {seq['peak_gib']:.1f} GiB")
+    check(rel <= 1e-6, "the specs' step under seq_parallel gives another loss")
     want = cfg.num_layers * SPEC_STEPS * 2
     check(kern["counts"]["flash_attention"] == want,
           f"expected {want} flash launches (layers x steps x 2: forward and remat recompute)")
@@ -2042,6 +2058,42 @@ def check_pod_halves(recs: list) -> None:
     check(not bad, "; ".join(bad))
 
 
+DRYRUN_RECORD = REPO / "artifacts" / "dryrun" / "torch_results.json"
+
+
+def check_against_record(recs: list) -> None:
+    """Each combination's counts under this torch release against the
+    committed ``artifacts/dryrun/torch_results.json`` (written by ``python -m
+    repro_torch.launch.dryrun --all --both-meshes`` with and without
+    ``--production``, on a CPU under another release): FLOPs and collective
+    bytes by kind and mesh axis must be equal.  The dry run places the
+    residual stream, the attention, the recurrences, the Mamba mixer's
+    products, the MoE experts and auxiliary means, the loss and the decode
+    attention itself (``sharding.constrain_rows``, ``on_shards``), so that
+    no count follows DTensor's per-op choices, which differ by release."""
+    record = {(r["arch"], r["shape"], r["mesh"], r["production"]): r
+              for r in json.loads(DRYRUN_RECORD.read_text()) if r["status"] == "ok"}
+    print(f"  against the committed record ({DRYRUN_RECORD.relative_to(REPO)}, "
+          f"{len(record)} combinations): FLOPs and collective bytes by kind and axis")
+    bad = []
+    for r in recs:
+        if r["status"] != "ok":
+            continue
+        want = record.get((r["arch"], r["shape"], r["mesh"], r["production"]))
+        if want is None:
+            bad.append(f"{r['arch']} {r['shape']} {r['mesh']}: not in the record")
+            continue
+        got_ax, want_ax = (x["analyzed"]["collective_bytes_by_axis"] for x in (r, want))
+        same = (r["analyzed"]["flops"] == want["analyzed"]["flops"] and got_ax == want_ax)
+        print(f"  {r['arch']} | {r['shape']} | {r['mesh']} | {r['production']} | "
+              f"{'equal' if same else 'DIFFERS'}: FLOPs {r['analyzed']['flops']:.6e} (record "
+              f"{want['analyzed']['flops']:.6e})" + ("" if same else
+                                                      f"; by axis {got_ax} (record {want_ax})"))
+        if not same:
+            bad.append(f"{r['arch']} {r['shape']} {r['mesh']} production={r['production']}")
+    check(not bad, f"dry-run counts differ from the committed record: {bad}")
+
+
 def phase_dryrun(parallel: int = 8) -> list:
     """[32] ``python -m repro_torch.launch.dryrun`` in subprocesses, ``parallel``
     at a time on the host's cores: every job's exit 0 and no FAIL row, then
@@ -2103,12 +2155,43 @@ def phase_dryrun(parallel: int = 8) -> list:
               f"{r['memory']['temp_size_in_bytes'] / 2 ** 30:.3f} | {r['trace_s']}")
     check(any(r["status"] == "skipped" for r in recs), "whisper-base x long_500k must be skipped")
     check_pod_halves(recs)
+    check_against_record(recs)
     rows = roofline.load_table(merged)
     print(roofline.to_markdown(rows), end="")
     print(f"  {len(recs)} combinations, no FAIL; phase wall {time.perf_counter() - t_phase:.1f} s "
           f"(host, not the card)")
     shutil.rmtree(out_dir, ignore_errors=True)
     return recs
+
+
+def phase_remat_dots(phase4: dict, layers: int = 32, steps: int = 5) -> dict:
+    """[38] ``remat_policy="dots"`` against "full": stablelm-3b at full width
+    and depth, S 4096, batch 1, int8, ``launch.train.main`` for ``steps``
+    steps under "dots", held to phase 4's run of the same arguments under the
+    config's "full".  "dots" saves the projections' outputs (q, k, v, o,
+    gate, up, down: 26,560 bf16 columns x 4096 tokens a layer) and recomputes
+    the attention, the flash kernel among it; the products saved are the
+    values the recompute would make, so the losses agree to rounding."""
+    print(f"[38] remat_policy: stablelm-3b full width, {layers} layers, S 4096, batch 1, int8, "
+          f"{steps} steps through launch.train.main under \"dots\", against phase 4's \"full\"")
+    dots, counts = run_trainer(trainer_args("int8", steps, layers, ["--remat-policy", "dots"]))
+    full, full_counts = phase4["result"], phase4["counts"]
+    for policy, res, c in (("full", full, full_counts), ("dots", dots, counts)):
+        print(f"  {policy}: median step {res['median_step_s']:.4f} s, {res['tokens_per_s']:.0f} "
+              f"tokens/s, peak {res['peak_gib']:.2f} GiB, flash launches "
+              f"{c['flash_attention']}, losses {res['losses'][:3]}")
+        check(c["flash_attention"] == layers * steps * 2,
+              f"expected {layers * steps * 2} flash launches (layers x steps x 2: forward and "
+              f"its recompute) under {policy}")
+    for i in range(3):
+        rel = abs(dots["losses"][i] - full["losses"][i]) / abs(full["losses"][i])
+        print(f"  step {i}: dots {dots['losses'][i]:.6f} vs full {full['losses'][i]:.6f} "
+              f"(rel diff {rel:.2e}, tolerance 1e-5: the same products, bit-equal on the card "
+              f"so far)")
+        check(rel <= 1e-5, "remat_policy dots and full disagree")
+    print(f"  dots / full: step {dots['median_step_s'] / full['median_step_s']:.4f}, peak "
+          f"{dots['peak_gib'] - full['peak_gib']:+.2f} GiB")
+    return {"full": (full, full_counts), "dots": (dots, counts)}
 
 
 NEW_TRAINERS = [
@@ -2412,6 +2495,7 @@ def main() -> None:
         phase_new_trainer(*trainer)
     phase_mla_block()
     phase_e2e_codecs(dryrun_recs)
+    phase_remat_dots(trained, args.layers)
 
     # each kernel's launches on the path that runs it: ternarize on the
     # ternary trainer run, topk_mask on the topk run, wkv on rwkv6 serving,

@@ -108,6 +108,7 @@ def dryrun_cfg(cfg: ModelConfig, shape: InputShape, mesh, opt_name: str = "adamw
             "collective_bytes": ana.collective_bytes,
             "collective_counts": ana.collective_counts,
             "collective_bytes_by_axis": ana.collective_bytes_by_axis,
+            "collective_elements_by_axis": ana.collective_elements_by_axis,
         },
         "memory": {
             "temp_size_in_bytes": ana.peak_bytes,

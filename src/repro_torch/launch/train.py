@@ -145,6 +145,8 @@ def config_from_args(args):
         cfg = cfg.replace(num_layers=args.layers)
     if args.use_pallas:
         cfg = cfg.replace(use_pallas=args.use_pallas)
+    if getattr(args, "remat_policy", ""):
+        cfg = cfg.replace(remat_policy=args.remat_policy)
     if cfg.hybrid_block_layers and (cfg.num_layers <= 0
                                     or cfg.num_layers % cfg.hybrid_block_layers):
         # JAX floors num_layers // hybrid_block_layers and drops the rest
@@ -310,6 +312,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--use-pallas", default="", choices=["", "auto", "always", "never"],
                     help="hand-written kernels: auto = on CUDA tensors; never = "
                          "plain versions everywhere (reference runs)")
+    ap.add_argument("--remat-policy", default="", choices=["", "full", "dots"],
+                    help="recompute in backward: full = each layer whole (the config's "
+                         "default); dots = save the products' outputs (the decoders of "
+                         "models/transformer.py)")
     return ap
 
 

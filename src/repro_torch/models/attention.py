@@ -16,8 +16,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attn import flash_attention_cuda
-from repro_torch.models.layers import (Params, _device_of, apply_rope, dense_init, rms_norm,
-                                       torch_dtype)
+from repro_torch.models.layers import (Params, _device_of, _model_only, apply_rope, dense_init,
+                                       rms_norm, torch_dtype)
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import write_at
 
@@ -123,20 +123,36 @@ def _flash_pallas_cv(q, k, v, causal: bool):
 def _on_shards(q, k, v, fn):
     """``fn(q, k, v)`` on each rank's shards of DTensor q, k, v (B, H, S, d)
     (``local_map``), the attention's fixed lowering on a mesh.  Attention is
-    independent per (batch row, head): the batch rows split over the axes
-    the specs split a batch of B over (``sharding.batch_shardable``), the
-    heads over `model` where the kv heads divide it (query head h reads kv
-    head h // G, and the query heads split as evenly), else every `model`
-    rank takes them all.  DTensor's own strategies for the batched products
-    inside would otherwise choose, op by op, by the torch release's cost
-    model: with the batch over two mesh axes and the heads over a third, the
-    flattened (batch x head) dim of the scores is sharded three ways, and
-    they gather it whole."""
+    independent per (batch row, kv head): the batch rows split over the
+    axes the specs split a batch of B over (``sharding.batch_shardable``),
+    and over `model`:
+
+    - the kv heads, where they divide it (query head h reads kv head
+      h // G, and the query heads split as evenly);
+    - else the (row, kv head) pairs, where they divide the rows' axes and
+      `model` together: (B, H, S, d) is flattened to (B * Hkv, G, S, d), a
+      kv head and its G query heads a row (8 kv heads on 16 ranks:
+      internvl2, command-r, Jamba's attention, Whisper);
+    - else every `model` rank takes them all.
+
+    DTensor's own strategies for the batched products inside would
+    otherwise choose, op by op, by the torch release's cost model: with the
+    batch over two mesh axes and the heads over a third, the flattened
+    (batch x head) dim of the scores is sharded three ways, and they gather
+    it whole."""
     from torch.distributed.tensor import Replicate, Shard
 
     mesh = q.device_mesh
-    heads = Shard(1) if k.shape[1] % shd.mesh_axis_size(mesh, "model") == 0 else Replicate()
-    pl = shd.with_model(mesh, shd.row_placements(mesh, q.shape[0]), heads)
+    m = shd.mesh_axis_size(mesh, "model")
+    B, Hq, Sq, _ = q.shape
+    Hkv = k.shape[1]
+    rows = shd.row_placements(mesh, B)
+    ways = m * math.prod(shd.mesh_axis_size(mesh, a) for a in shd.batch_shardable(mesh, B) or ())
+    if Hkv % m and B * Hkv % ways == 0:
+        pl = shd.with_model(mesh, rows, Shard(0))
+        q, k, v = (t.reshape(B * Hkv, -1, *t.shape[2:]).contiguous() for t in (q, k, v))
+        return shd.on_shards(fn, mesh, (pl, pl, pl), pl)(q, k, v).reshape(B, Hq, Sq, -1)
+    pl = shd.with_model(mesh, rows, Shard(1) if Hkv % m == 0 else Replicate())
     return shd.on_shards(fn, mesh, (pl, pl, pl), pl)(q, k, v)
 
 
@@ -188,18 +204,54 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(B, Hq, Sq, v.shape[-1])
 
 
-def decode_attention(q, k, v, valid_mask) -> torch.Tensor:
+def _softmax_weigh(s, weigh, groups=()) -> torch.Tensor:
+    """``weigh(softmax(s))``, the softmax over the last dim of the float32
+    scores ``s``, ``weigh`` linear in its weights (their sum over that dim
+    against the values).  ``groups``: the process groups that split that
+    dim, each rank holding its slots' scores; each rank's running max,
+    denominator and weighted values are all-reduced over them
+    (flash-decoding's merge).  No groups: one rank's softmax."""
+    from torch.distributed import _functional_collectives as funcol
+
+    m = s.amax(dim=-1)
+    for g in groups:
+        m = funcol.wait_tensor(funcol.all_reduce(m, "max", g))
+    p = torch.exp(s - m[..., None])
+    den, out = p.sum(dim=-1), weigh(p)
+    for g in groups:
+        den = funcol.wait_tensor(funcol.all_reduce(den, "sum", g))
+        out = funcol.wait_tensor(funcol.all_reduce(out, "sum", g))
+    return out / den[..., None]
+
+
+def decode_attention(q, k, v, valid_mask, groups=()) -> torch.Tensor:
     """Single-token attention.  q: (B, Hq, 1, d); k, v: (B, Hkv, S, d);
-    valid_mask: (B, S) bool (ring-buffer slots that hold real tokens)."""
+    valid_mask: (B, S) bool (ring-buffer slots that hold real tokens).
+    ``groups``: the process groups that split the S slots
+    (``_softmax_weigh``)."""
     B, Hq, _, d = q.shape
     Hkv = k.shape[1]
     G = Hq // Hkv
     qg = q.reshape(B, Hkv, G, d).float() / math.sqrt(d)
     s = torch.einsum("bhgd,bhkd->bhgk", qg, k.float())
     s = torch.where(valid_mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
+    out = _softmax_weigh(s, lambda p: torch.einsum("bhgk,bhkd->bhgd", p, v.float()), groups)
     return out.reshape(B, Hq, 1, d).to(q.dtype)
+
+
+def _cache_split(cache, slot_dim: int):
+    """(first slot, groups) of this rank's shard of a decode cache whose
+    slots lie along ``slot_dim``: the global index of its first slot and the
+    process groups of the mesh axes that split the slots.  Plain tensors:
+    (0, ())."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    if not isinstance(cache, DTensor):
+        return 0, ()
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    lo = compute_local_shape_and_global_offset(cache.shape, mesh, pl)[1][slot_dim]
+    return lo, tuple(mesh.get_group(i) for i, p in enumerate(pl) if p.is_shard(slot_dim))
 
 
 # ---------------------------------------------------------------------------
@@ -223,17 +275,46 @@ def gqa_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     """Training / prefill path.  x: (B, S, D) -> (out, cache)."""
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, S, H, hd).transpose(1, 2)
-    k = (x @ params["wk"]).reshape(B, S, KV, hd).transpose(1, 2)
-    v = (x @ params["wv"]).reshape(B, S, KV, hd).transpose(1, 2)
+    # where the kv heads do not divide `model` the attention splits its
+    # (row, kv head) pairs over it (``_on_shards``): the gradients of q, k
+    # and v are placed back on the projections' column shards before the
+    # products' backward, which DTensor would otherwise run whole
+    q, k, v = (shd.grad_as_placed(x @ params[w]).reshape(B, S, n, hd).transpose(1, 2)
+               for w, n in (("wq", H), ("wk", KV), ("wv", KV)))
     pos = q_offset + torch.arange(S, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
                           chunk=cfg.attn_chunk, q_offset=q_offset, cfg=cfg)
-    out = out.transpose(1, 2).reshape(B, S, H * hd)
+    out = shd.constrain_cols(out.transpose(1, 2).reshape(B, S, H * hd))
     cache = {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}      # (B, S, KV, hd)
     return out @ params["wo"], cache
+
+
+def _decode_on_shards(q, k, v, n_valid: int):
+    """``decode_attention`` over the first ``n_valid`` slots of the cache
+    (B, KV, W, hd).  On DTensors each rank attends with its own shards
+    (``sharding.on_shards``) in the cache's layout: its batch rows, its kv
+    heads where `model` splits them, and its slots where the cache is split
+    along W (``_cache_split``; flash-decoding).  DTensor's own strategies
+    for the batched products gather the cache whole over `model`, or reduce
+    the softmax in pieces, by choices that differ by torch release."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    lo, groups = _cache_split(k, 2)
+
+    def attend(q, k, v):
+        valid = (lo + torch.arange(k.shape[2], device=q.device)) < n_valid
+        return decode_attention(q, k, v, valid[None, :].expand(q.shape[0], k.shape[2]), groups)
+
+    if not isinstance(k, DTensor):
+        return attend(q, k, v)
+    mesh, kpl = k.device_mesh, tuple(k.placements)
+    if any(p.is_shard() and p.dim == 3 for p in kpl) or any(not (p.is_shard() or p.is_replicate())
+                                                            for p in kpl):
+        raise ValueError(f"a decode cache placed {kpl} is not one the specs give")
+    qpl = [Shard(p.dim) if p.is_shard() and p.dim < 2 else Replicate() for p in kpl]
+    return shd.on_shards(attend, mesh, (qpl, kpl, kpl), qpl)(q, k, v)
 
 
 def gqa_decode(params: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -258,8 +339,7 @@ def gqa_decode(params: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     write_at(cache["k"], 1, slot, k[:, 0])
     write_at(cache["v"], 1, slot, v[:, 0])
     n_valid = min(cache_index + 1, W)
-    valid = (torch.arange(W, device=x.device) < n_valid)[None, :].expand(B, W)
-    out = decode_attention(q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2), valid)
+    out = _decode_on_shards(q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2), n_valid)
     out = out.transpose(1, 2).reshape(B, 1, H * hd)
     return out @ params["wo"], cache
 
@@ -289,11 +369,18 @@ def _mla_qkv(params, x, cfg: ModelConfig, pos):
     R), the latent c_kv (B, S, L) and k_rope (B, S, R)."""
     B, S, _ = x.shape
     H, hd, R = cfg.num_heads, cfg.head_dim, cfg.mla_rope_dim
-    q = (x @ params["w_q"]).reshape(B, S, H, hd + R).transpose(1, 2)
+    # x's gradient from q (a pending sum over `model`) reduced before it
+    # meets the latent projections' (whole over `model`)
+    q = (shd.constrain_rows(x) @ _model_only(params["w_q"])).reshape(B, S, H, hd + R)
+    q = q.transpose(1, 2)
     q_nope, q_rope = q[..., :hd], q[..., hd:]
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
-    c_kv = rms_norm(shd.constrain_rows(x @ params["w_dkv"]), params["ln_kv"], cfg.norm_eps)
-    k_rope = shd.constrain_rows(apply_rope((x @ params["w_kr"])[:, None], pos, cfg.rope_theta)[:, 0])
+    # the latent and rope-key projections are whole over `model`: split by
+    # tokens (``sharding.on_tokens``), then gathered to rows
+    c_kv, k_rope = (shd.constrain_rows(shd.on_tokens(torch.matmul, (x,), (params[k],)))
+                    for k in ("w_dkv", "w_kr"))
+    c_kv = rms_norm(c_kv, params["ln_kv"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, None], pos, cfg.rope_theta)[:, 0]
     return q_nope, q_rope, c_kv, k_rope
 
 
@@ -317,6 +404,33 @@ def mla_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return out @ params["w_o"], {"c_kv": c_kv, "k_rope": k_rope}
 
 
+def _latent_on_shards(q_lat, q_rope, c_kv, k_rope, n_valid: int, scale: float):
+    """MLA decode's attention in the latent space: (B, H, L) context over
+    the first ``n_valid`` slots of the latent cache c_kv (B, W, L) and rope
+    keys (B, W, R).  On DTensors each rank attends with its cache shard's
+    rows and slots, every head (``sharding.on_shards``), merged over the
+    axes that split W as ``_decode_on_shards`` does."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    lo, groups = _cache_split(c_kv, 1)
+
+    def attend(q_lat, q_rope, c_kv, k_rope):
+        s = torch.einsum("bhl,bwl->bhw", q_lat.float(), c_kv.float())
+        s = (s + torch.einsum("bhr,bwr->bhw", q_rope.float(), k_rope.float())) * scale
+        slot = lo + torch.arange(c_kv.shape[1], device=c_kv.device)
+        s = torch.where((slot < n_valid)[None, None, :], s, torch.full_like(s, NEG_INF))
+        return _softmax_weigh(s, lambda p: torch.einsum("bhw,bwl->bhl", p, c_kv.float()), groups)
+
+    if not isinstance(c_kv, DTensor):
+        return attend(q_lat, q_rope, c_kv, k_rope)
+    mesh, kpl = c_kv.device_mesh, tuple(c_kv.placements)
+    if any(not (p.is_shard(0) or p.is_shard(1) or p.is_replicate()) for p in kpl):
+        raise ValueError(f"a latent cache placed {kpl} is not one the specs give")
+    qpl = [Shard(0) if p.is_shard(0) else Replicate() for p in kpl]
+    return shd.on_shards(attend, mesh, (qpl, qpl, kpl, tuple(k_rope.placements)), qpl)(
+        q_lat, q_rope, c_kv, k_rope)
+
+
 def mla_decode(params: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                cache_index: int, cfg: ModelConfig
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -333,19 +447,15 @@ def mla_decode(params: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     slot = cache_index % W
     write_at(cache["c_kv"], 1, slot, c_new[:, 0])
     write_at(cache["k_rope"], 1, slot, kr_new[:, 0])
-    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     n_valid = min(cache_index + 1, W)
-    valid = torch.arange(W, device=x.device)[None, :] < n_valid          # (1, W)
     # (B, H, hd) x (L, H, hd) -> the query in the latent space (B, H, L)
-    w_uk = params["w_uk"].reshape(-1, H, hd)
+    # the up-projections and w_o gathered over the fsdp axis (``_model_only``):
+    # their contracted dims would otherwise meet the batch rows split over it
+    w_uk = _model_only(params["w_uk"]).reshape(-1, H, hd)
     q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, :, 0], w_uk)
-    s = torch.einsum("bhl,bwl->bhw", q_lat.float(), c_kv.float())
-    s = s + torch.einsum("bhr,bwr->bhw", q_rope[:, :, 0].float(), k_rope.float())
-    s = s / math.sqrt(hd + R)
-    s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bhw,bwl->bhl", p, c_kv.float())                   # latent context
-    w_uv = params["w_uv"].reshape(-1, H, hd)
+    ctx = _latent_on_shards(q_lat, q_rope[:, :, 0], cache["c_kv"], cache["k_rope"], n_valid,
+                            1.0 / math.sqrt(hd + R))                      # latent context
+    w_uv = _model_only(params["w_uv"]).reshape(-1, H, hd)
     out = torch.einsum("bhl,lhd->bhd", ctx, w_uv.float())
     out = out.reshape(B, 1, H * hd).to(x.dtype)
-    return out @ params["w_o"], cache
+    return out @ _model_only(params["w_o"]), cache

@@ -196,17 +196,17 @@ def _layer_decode(lp: Params, x, cache, cache_index: int, cfg: ModelConfig,
         a, new_state = mamba_lib.mamba_decode(lp["ssm"], h, cache, cfg)
         for key, val in new_state.items():
             cache[key].copy_(val)
-    x = x + a
+    x = x + shd.constrain_rows(a)
     h = rms_norm(x, lp["ln2"]["w"], cfg.norm_eps)
     m = moe_lib.moe_block(lp["moe"], h, cfg)[0] if use_moe else mlp(lp["mlp"], h)
-    return x + m
+    return x + shd.constrain_rows(m)
 
 
 def decode_step(params: Params, token: torch.Tensor, cache, cache_index, cfg: ModelConfig):
     """token: (B, 1) int; cache_index: tokens already cached (an int).
     Returns (logits (B, 1, V), cache), the cache the one passed in."""
     cache_index = int(cache_index)
-    x = lookup(params["embed"]["w"], token)
+    x = shd.constrain_rows(lookup(params["embed"]["w"], token))
     layout = block_layout(cfg)
     for j in range(n_super_blocks(cfg)):
         for i, (mixer, use_moe) in enumerate(layout):

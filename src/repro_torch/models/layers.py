@@ -133,9 +133,26 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype: torch.dtype, n_layers: int = 0
     }
 
 
+def _model_only(w):
+    """A DTensor weight gathered over every mesh axis but `model` (under
+    ``fsdp_tp`` the specs split it over `data` too): FSDP's gather before
+    the products, its gradient reduce-scattered back.  DTensor alone would
+    split the products' contraction over `data` instead, and reduce their
+    outputs by collectives that differ by torch release.  Anything else
+    passes through."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(w, DTensor):
+        return w
+    names = w.device_mesh.mesh_dim_names
+    pl = [p if n == "model" else Replicate() for n, p in zip(names, w.placements)]
+    return w if pl == list(w.placements) else w.redistribute(w.device_mesh, pl)
+
+
 def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
-    h = torch.nn.functional.silu(x @ params["wg"]) * (x @ params["wi"])
-    return h @ params["wo"]
+    wg, wi, wo = (_model_only(params[k]) for k in ("wg", "wi", "wo"))
+    h = torch.nn.functional.silu(x @ wg) * (x @ wi)
+    return h @ wo
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +223,7 @@ def chunked_softmax_xent(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.T
     ``valid_vocab``: logits of padded vocab columns >= this are masked to
     -1e30 (0 = all valid).  Mean over B*S.
     """
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Replicate
 
     B, S, D = x.shape
     V = lm_head.shape[-1]
@@ -216,12 +233,16 @@ def chunked_softmax_xent(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.T
         chunk = S  # one block for odd smoke shapes
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     labels = labels.long()
+    pending = None
     for start in range(0, S, chunk):
         xc = x[:, start:start + chunk]
         lc = labels[:, start:start + chunk]
         logits = (xc @ lm_head).float()                           # (B, chunk, V)
         if isinstance(logits, DTensor):
-            total = total + _ShardedXent.apply(logits, lc, valid_vocab)
+            # each chunk's pending sum added on the rank, reduced once below
+            part = _ShardedXent.apply(logits, lc, valid_vocab)
+            pending = part.device_mesh, part.placements
+            total = total + part.to_local(grad_placements=[Replicate()] * part.device_mesh.ndim)
             continue
         if vocab_mask is not None:
             logits = logits.masked_fill(vocab_mask, -1e30)
@@ -229,6 +250,10 @@ def chunked_softmax_xent(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.T
         # the difference before the [..., 0]: on a vocab-sharded DTensor the
         # gather is a masked partial sum, which a view must not come between
         total = total + torch.sum((lse[..., None] - torch.gather(logits, -1, lc[..., None]))[..., 0])
+    if pending is not None:
+        mesh, placements = pending
+        total = DTensor.from_local(total, mesh, placements, run_check=False).redistribute(
+            mesh, [Replicate()] * mesh.ndim)
     return total / (B * S)
 
 

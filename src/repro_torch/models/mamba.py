@@ -202,6 +202,105 @@ def _depthwise_conv(x, w, b, prev=None):
     return y, xp[:, -(d_conv - 1):]
 
 
+def _channels(x):
+    """On a DTensor whose last dim (d_inner) divides `model`: (mesh, its rows
+    with d_inner split over `model`, that split's placements for a weight
+    whose dim ``d`` is d_inner: ``weight(d)``); else None, and the plain
+    code runs."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor) or x.shape[-1] % shd.mesh_axis_size(x.device_mesh, "model"):
+        return None
+    mesh = x.device_mesh
+    rows = shd.row_placements(mesh, x.shape[0])
+    return (mesh, shd.with_model(mesh, rows, Shard(x.dim() - 1)),
+            lambda d: shd.with_model(mesh, [Replicate()] * mesh.ndim, Shard(d)))
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` over ``group`` along dim 0 (``recv`` / ``send``:
+    rows from / to each rank), its backward the reverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, recv, send, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        ctx.args = (send, recv, group)
+        return funcol.wait_tensor(funcol.all_to_all_single(x, recv, send, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+
+        send, recv, group = ctx.args
+        return (funcol.wait_tensor(funcol.all_to_all_single(g.contiguous(), send, recv, group)),
+                None, None, None)
+
+
+def _in_proj(x, w_in, di: int):
+    """(xs, z): ``x @ w_in`` split into its two d_inner halves.
+
+    On DTensors the specs split ``w_in``'s 2·d_inner columns over `model` in
+    blocks, so the product comes out with the first half of the ranks
+    holding xs's columns and the rest z's, while the conv, the scan and the
+    gate want each rank to hold the same channels of both.  One all-to-all
+    over `model` sends each half-block to the rank that owns those channels
+    (``sharding.on_shards``; the backward is the reverse all-to-all).
+    DTensor alone gathers the product whole over `model` to slice it, and
+    in backward its gradient, by choices that differ by torch release."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    xz = x @ w_in                                        # (B, S, 2*di)
+    m = shd.mesh_axis_size(xz.device_mesh, "model") if isinstance(xz, DTensor) else 1
+    if m == 1 or m % 2 or di % m:
+        return xz[..., :di], xz[..., di:]
+    mesh = xz.device_mesh
+    group = mesh.get_group("model")
+    r, half = mesh.get_local_rank("model"), di // m
+
+    def local(block):
+        block = block.permute(2, 0, 1).contiguous()     # (2*di/m, b, S): channels first
+        # this rank's block holds channel blocks 2r and 2r + 1 (of xs, or
+        # of z past the middle rank); it receives its own block of xs, then of z
+        dest = [2 * (r % (m // 2)), 2 * (r % (m // 2)) + 1]
+        send = [half if k in dest else 0 for k in range(m)]
+        recv = [half if k in (r // 2, m // 2 + r // 2) else 0 for k in range(m)]
+        got = _AllToAll.apply(block, recv, send, group)
+        return got[:half].permute(1, 2, 0), got[half:].permute(1, 2, 0)
+
+    ch = shd.with_model(mesh, shd.row_placements(mesh, xz.shape[0]), Shard(2))
+    return shd.on_shards(local, mesh, (ch,), (ch, ch))(xz)
+
+
+def _conv_silu(xs, w, b, prev):
+    """``silu`` of the causal depthwise conv, and the new left context; on
+    DTensors each rank on its rows and d_inner channels."""
+    def local(xs, w, b, prev):
+        y, state = _depthwise_conv(xs, w, b, prev)
+        return F.silu(y), state
+
+    placed = _channels(xs)
+    if placed is None:
+        return local(xs, w, b, prev)
+    mesh, ch, weight = placed
+    fn = shd.on_shards(local, mesh, (ch, weight(1), weight(0), None if prev is None else ch),
+                       (ch, ch))
+    return fn(xs, w, b, prev)
+
+
+def _gate(y, xs, z, d_skip, dtype):
+    """``(y + d_skip * xs) * silu(z)`` in ``dtype``; on DTensors each rank on
+    its rows and d_inner channels."""
+    def local(y, xs, z, d_skip):
+        return (y.float() + d_skip * xs.float()).to(dtype) * F.silu(z)
+
+    placed = _channels(xs)
+    if placed is None:
+        return local(y, xs, z, d_skip)
+    mesh, ch, weight = placed
+    return shd.on_shards(local, mesh, (ch, ch, ch, weight(0)), ch)(y, xs, z, d_skip)
+
+
 def _scan_formed(cfg: ModelConfig, kernel: bool, decay, bx, c_t, h0):
     """The scan over the formed decay and bx (rounded to bf16 under
     ``bf16_stream``): the TPU-signature kernel or one of the three plain
@@ -217,6 +316,25 @@ def _scan_formed(cfg: ModelConfig, kernel: bool, decay, bx, c_t, h0):
     states, h_final = _ssm_scan_chunked(decay, bx, h0, cfg.ssm.chunk_size)
     del decay, bx
     return torch.einsum("bsdn,bsn->bsd", states, c_t), h_final
+
+
+def _bcdt_proj(xs, w_bcdt):
+    """``xs @ w_bcdt``: (B, S, di) -> (B, S, dt_rank + 2n).
+
+    On DTensors each rank multiplies its batch rows' d_inner slice by its
+    rows of ``w_bcdt`` (``sharding.on_shards``; the specs split both over
+    `model`): the output is a pending sum over `model`, reduced where
+    ``_dt_proj`` and the scan take it, and in backward the weight's
+    gradient is each rank's local product.  DTensor's own choice for that
+    gradient, in some torch releases, gathers ``xs`` whole over `model`."""
+    from torch.distributed.tensor import Partial
+
+    placed = _channels(xs)
+    if placed is None:
+        return xs @ w_bcdt
+    mesh, ch, weight = placed
+    return shd.on_shards(torch.matmul, mesh, (ch, weight(0)),
+                         shd.with_model(mesh, ch, Partial()))(xs, w_bcdt)
 
 
 def _dt_proj(low, w_dt, dt_bias):
@@ -283,13 +401,11 @@ def mamba_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence mixer.  x: (B, S, D) -> (out (B, S, D), final state)."""
     di, dt_rank, n, d_conv = dims(cfg)
-    xz = x @ params["w_in"]                              # (B, S, 2*di)
-    xs, z = xz[..., :di], xz[..., di:]
+    xs, z = _in_proj(x, params["w_in"], di)              # (B, S, di) each
     prev = state["conv"] if state is not None else None
-    xs, conv_state = _depthwise_conv(xs, params["conv_w"], params["conv_b"], prev)
-    xs = F.silu(xs)
+    xs, conv_state = _conv_silu(xs, params["conv_w"], params["conv_b"], prev)
 
-    bcdt = xs @ params["w_bcdt"]                         # (B, S, dt_rank+2n)
+    bcdt = _bcdt_proj(xs, params["w_bcdt"])              # (B, S, dt_rank+2n)
     dt = _dt_proj(bcdt[..., :dt_rank], params["w_dt"], params["dt_bias"])
     b_t = bcdt[..., dt_rank:dt_rank + n].float()
     c_t = bcdt[..., dt_rank + n:].float()
@@ -297,8 +413,7 @@ def mamba_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig,
     a = -torch.exp(params["a_log"])                      # (di, n)
     h0 = state["ssm"] if state is not None else None
     y, h_final = _scan_on_shards(cfg, use_pallas(cfg, x), dt, xs, b_t, c_t, a, h0)
-    y = y.float() + params["d_skip"] * xs.float()
-    y = y.to(x.dtype) * F.silu(z)
+    y = _gate(y, xs, z, params["d_skip"], x.dtype)
     out = y @ params["w_out"]
     return out, {"conv": conv_state, "ssm": h_final.float()}
 

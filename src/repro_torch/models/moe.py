@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.models.layers import Params, dense_init, init_mlp, mlp, torch_dtype
+from repro_torch.models.layers import Params, _model_only, dense_init, init_mlp, mlp, torch_dtype
 from repro_torch.parallel import sharding as shd
 
 
@@ -115,7 +115,7 @@ def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig
     E, K = moe.num_experts, moe.top_k
     C = min(expert_capacity(moe, S), S)
 
-    logits = (x @ params["router"]).float()                      # (B,S,E)
+    logits = (x @ _model_only(params["router"])).float()        # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, K)                        # (B,S,K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
@@ -145,8 +145,8 @@ def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig
     # auxiliary losses: load balance E * sum_e f_e * p_e (Switch Transformer
     # eq. 4-6) and the router z-loss
     top1 = _one_hot(gate_idx[..., 0], E, torch.float32)
-    f = top1.mean(dim=(0, 1))
-    p = shd.constrain_rows(probs).mean(dim=(0, 1))        # its gradient stays in rows, as probs's
+    f = shd.row_mean(top1, (0, 1))
+    p = shd.row_mean(probs, (0, 1))
     lb = E * torch.sum(f * p) * moe.load_balance_loss
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * moe.router_z_loss
+    z = shd.row_mean(torch.logsumexp(logits, dim=-1) ** 2, (0, 1)) * moe.router_z_loss
     return out, {"load_balance": lb, "router_z": z}

@@ -190,7 +190,8 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 
 
 def _decay(params: Params, xw: torch.Tensor) -> torch.Tensor:
-    lora = shd.constrain_rows(torch.tanh(xw @ params["w_decay_lora_a"])) @ params["w_decay_lora_b"]
+    lora = shd.constrain_rows(shd.on_tokens(lambda x, a: torch.tanh(x @ a), (xw,),
+                                         (params["w_decay_lora_a"],))) @ params["w_decay_lora_b"]
     return -torch.exp(params["w_decay"] + lora.float())               # logw <= 0
 
 
@@ -207,7 +208,7 @@ def time_mix(params: Params, x: torch.Tensor, cfg: ModelConfig,
     """x: (B, S, D) -> (out, {state, tm_x})."""
     B, S, D = x.shape
     H, hd = head_dims(cfg)
-    prev = state["tm_x"] if state is not None else x.new_zeros((B, D))
+    prev = shd.constrain_rows(state["tm_x"]) if state is not None else x.new_zeros((B, D))
     xs = _token_shift(x, prev)
     mu = params["mix"].to(x.dtype)                                     # (5, D)
     mr, mk, mv, mw, mg = (x + mu[i] * (xs - x) for i in range(5))
@@ -224,16 +225,21 @@ def time_mix(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return out, {"state": s_final, "tm_x": x[:, -1]}
 
 
+def _channel_products(mr, mk, wr, wk, wv) -> torch.Tensor:
+    r = torch.sigmoid(mr @ wr)
+    return r * (torch.square(torch.relu(mk @ wk)) @ wv)
+
+
 def channel_mix(params: Params, x: torch.Tensor,
                 state: Optional[Dict[str, torch.Tensor]] = None):
     B, S, D = x.shape
-    prev = state["cm_x"] if state is not None else x.new_zeros((B, D))
+    prev = shd.constrain_rows(state["cm_x"]) if state is not None else x.new_zeros((B, D))
     xs = _token_shift(x, prev)
     mu = params["mix_ch"].to(x.dtype)
     mr, mk = (x + mu[i] * (xs - x) for i in range(2))
-    r = torch.sigmoid(mr @ params["wr_ch"])
-    kk = torch.square(torch.relu(mk @ params["wk_ch"]))
-    return r * (kk @ params["wv_ch"]), {"cm_x": x[:, -1]}
+    c = shd.on_tokens(_channel_products, (mr, mk),
+                   tuple(params[key] for key in ("wr_ch", "wk_ch", "wv_ch")))
+    return c, {"cm_x": x[:, -1]}
 
 
 def _block(bp: Params, x: torch.Tensor, cfg: ModelConfig, state=None):

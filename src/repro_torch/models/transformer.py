@@ -10,23 +10,38 @@ MoE stack ``blocks``.  With ``cfg.remat`` each layer runs under
 ``torch.utils.checkpoint``, which carries the MoE auxiliary losses out with
 the residual stream (the reference's scan carry).  A VLM prepends its
 prefix embeddings to the token embeddings; the loss drops those positions,
-the prefill's cache keeps them.  Serving: ``prefill`` returns the stacked
+the prefill's cache keeps them.
+
+Two options of the reference's stack change how a step runs, not what it
+computes.  ``cfg.remat_policy == "dots"`` checkpoints each layer
+selectively: the outputs of the products without batch dims (``aten.mm``,
+``aten.addmm``, which ``x @ w`` lowers to) are saved and everything else,
+the attention's batched products and the flash kernel among it, is
+recomputed in backward (``dots_with_no_batch_dims_saveable``).
+``cfg.seq_parallel`` names batch axes: on DTensors the residual stream is
+held before, inside and after each block with the batch over those axes
+and S split over `model` (``sharding.constrain_seq``), each block's
+normalised input is gathered over `model` for its products and their
+outputs reduce-scattered back along S (Megatron's sequence parallelism);
+on plain tensors it changes nothing.  Serving: ``prefill`` returns the stacked
 caches (K/V for GQA, the latent ``c_kv`` and ``k_rope`` for MLA),
 ``decode_step`` writes one token into them in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (Params, _device_of, chunked_softmax_xent, dense_init,
                                        embed_init, init_mlp, mlp, rms_norm, torch_dtype)
-from repro_torch.parallel.sharding import constrain_rows, lookup, stacked_empty
+from repro_torch.parallel.sharding import (constrain_rows, constrain_seq, lookup, row_placements,
+                                           seq_axes, seq_placements, stacked_empty)
 from repro_torch.utils.tree import tree_map
 
 
@@ -93,18 +108,54 @@ def init_decoder(gen, cfg: ModelConfig, device=None) -> Params:
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
+def _layouts(cfg: ModelConfig, x: torch.Tensor):
+    """(gather, hold) for one block: ``gather`` places a normalised input for
+    the block's products, ``hold`` a product's output for the residual add.
+    Without ``cfg.seq_parallel`` the stream stays in rows (``gather`` is the
+    identity); with it, ``gather`` all-gathers S over `model` (its gradient
+    reduce-scattered back) and ``hold`` reduce-scatters along S (its
+    gradient all-gathered)."""
+    from torch.distributed.tensor import DTensor
+
+    axes = seq_axes(cfg)
+    if not axes or not isinstance(x, DTensor):
+        return (lambda t: t), constrain_rows
+    mesh = x.device_mesh
+    rows = tuple(row_placements(mesh, x.shape[0]))
+    seq = tuple(seq_placements(mesh, axes))
+    return (functools.partial(constrain_rows, grad_placements=seq),
+            functools.partial(constrain_seq, axes=axes, grad_placements=rows))
+
+
 def _block_forward(bp: Params, x: torch.Tensor, cfg: ModelConfig, use_moe: bool,
                    q_offset: int = 0):
     """One transformer layer.  Returns (x, aux, cache)."""
+    gather, hold = _layouts(cfg, x)
     attend = attn_lib.mla_forward if cfg.attention == "mla" else attn_lib.gqa_forward
-    a, cache = attend(bp["attn"], rms_norm(x, bp["ln1"]["w"], cfg.norm_eps), cfg, q_offset)
-    x = x + constrain_rows(a)
-    h = rms_norm(x, bp["ln2"]["w"], cfg.norm_eps)
+    a, cache = attend(bp["attn"], gather(rms_norm(x, bp["ln1"]["w"], cfg.norm_eps)), cfg,
+                      q_offset)
+    x = x + hold(a)
+    h = gather(rms_norm(x, bp["ln2"]["w"], cfg.norm_eps))
     if use_moe:
         m, aux = moe_lib.moe_block(bp["moe"], h, cfg)
     else:
         m, aux = mlp(bp["mlp"], h), {}
-    return x + constrain_rows(m), aux, cache
+    return x + hold(m), aux, cache
+
+
+# the products without batch dims, whose outputs ``remat_policy="dots"`` saves
+_SAVED_PRODUCTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _remat_options(cfg: ModelConfig) -> dict:
+    """``checkpoint``'s keyword arguments for ``cfg.remat_policy``: under
+    ``"dots"`` a selective checkpoint that saves ``_SAVED_PRODUCTS``'
+    outputs and recomputes the rest; otherwise (``"full"``) the whole layer
+    is recomputed."""
+    if cfg.remat_policy == "dots":
+        return {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                                _SAVED_PRODUCTS)}
+    return {}
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -124,8 +175,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {}
 
+    axes = seq_axes(cfg)
+
     def body(h, aux_acc, lp, use_moe):
+        if axes:
+            h = constrain_seq(h, axes)
         h, aux, cache = _block_forward(lp, h, cfg, use_moe)
+        if axes:
+            h = constrain_seq(h, axes)
         if aux:
             aux_acc = aux_acc + sum(aux.values())
         return h, aux_acc, cache
@@ -144,11 +201,13 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             elif cfg.remat and torch.is_grad_enabled():
                 x, aux_acc = checkpoint(lambda h, a, p, m=use_moe: body(h, a, p, m)[:2],
                                         x, aux_acc, lp, use_reentrant=False,
-                                        preserve_rng_state=False)
+                                        preserve_rng_state=False, **_remat_options(cfg))
             else:
                 x, aux_acc, _ = body(x, aux_acc, lp, use_moe)
         aux_total = aux_total + aux_acc
     x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+    if axes:
+        x = constrain_rows(x)
     return x, aux_total, caches
 
 
@@ -208,10 +267,10 @@ def _block_decode(bp: Params, x: torch.Tensor, cache, cache_index: int, cfg: Mod
                   use_moe: bool):
     attend = attn_lib.mla_decode if cfg.attention == "mla" else attn_lib.gqa_decode
     a, _ = attend(bp["attn"], rms_norm(x, bp["ln1"]["w"], cfg.norm_eps), cache, cache_index, cfg)
-    x = x + a
+    x = x + constrain_rows(a)
     h = rms_norm(x, bp["ln2"]["w"], cfg.norm_eps)
     m = moe_lib.moe_block(bp["moe"], h, cfg)[0] if use_moe else mlp(bp["mlp"], h)
-    return x + m
+    return x + constrain_rows(m)
 
 
 def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any], cache_index,
@@ -222,7 +281,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any], cach
     Returns (logits (B, 1, V), cache).  Each layer's slice of the stacked
     cache is written in place, so the returned cache is the one passed in."""
     cache_index = int(cache_index)
-    x = lookup(params["embed"]["w"], token)
+    x = constrain_rows(lookup(params["embed"]["w"], token))
     for name, n_layers, use_moe in _stacks(cfg):
         for i in range(n_layers):
             lp = tree_map(lambda p: p[i], params[name])

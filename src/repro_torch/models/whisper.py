@@ -32,7 +32,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.layers import (Params, _device_of, chunked_softmax_xent, dense_init,
                                        embed_init, init_mlp, rms_norm, torch_dtype)
-from repro_torch.parallel.sharding import constrain_rows, lookup
+from repro_torch.parallel.sharding import constrain_cols, constrain_rows, grad_as_placed, lookup
 from repro_torch.utils.tree import tree_map
 
 
@@ -40,6 +40,15 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a @ w`` in the promoted dtype of the two, as ``jnp.matmul``."""
     dt = torch.promote_types(a.dtype, w.dtype)
     return a.to(dt) @ w.to(dt)
+
+
+def _heads(h: torch.Tensor, w: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n, hd) heads of the projection ``h @ w``; its gradient is
+    placed as its columns are (``sharding.grad_as_placed``): the attention
+    splits its (row, kv head) pairs over `model`, which the 8 heads alone
+    cannot split, and the projections' backward would run whole."""
+    B, S, _ = h.shape
+    return grad_as_placed(_mm(h, w)).reshape(B, S, n, hd)
 
 
 def _mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -111,11 +120,11 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     def body(x, bp):
         h = rms_norm(x, bp["ln1"]["w"], cfg.norm_eps)
         B, S, _ = h.shape
-        q = _mm(h, bp["attn"]["wq"]).reshape(B, S, H, hd).transpose(1, 2)
-        k = _mm(h, bp["attn"]["wk"]).reshape(B, S, KV, hd).transpose(1, 2)
-        v = _mm(h, bp["attn"]["wv"]).reshape(B, S, KV, hd).transpose(1, 2)
+        q, k, v = (_heads(h, bp["attn"][w], n, hd).transpose(1, 2)
+                   for w, n in (("wq", H), ("wk", KV), ("wv", KV)))
         a = flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-        x = x + constrain_rows(_mm(a.transpose(1, 2).reshape(B, S, H * hd), bp["attn"]["wo"]))
+        x = x + constrain_rows(_mm(constrain_cols(a.transpose(1, 2).reshape(B, S, H * hd)),
+                                   bp["attn"]["wo"]))
         return x + constrain_rows(_mlp(bp["mlp"], rms_norm(x, bp["ln2"]["w"], cfg.norm_eps)))
 
     x = constrain_rows(frames)
@@ -134,19 +143,17 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tens
 def _cross_kv(bp: Params, enc_out: torch.Tensor, cfg: ModelConfig):
     B, Se, _ = enc_out.shape
     KV, hd = cfg.num_kv_heads, cfg.head_dim
-    xk = _mm(enc_out, bp["wk"]).reshape(B, Se, KV, hd)
-    xv = _mm(enc_out, bp["wv"]).reshape(B, Se, KV, hd)
-    return xk, xv
+    return _heads(enc_out, bp["wk"], KV, hd), _heads(enc_out, bp["wv"], KV, hd)
 
 
 def _cross_attend(bp: Params, h, xk, xv, cfg: ModelConfig):
     """h: (B, Sq, D); xk/xv: (B, Se, KV, hd): bidirectional, no rope."""
     B, Sq, _ = h.shape
     H, hd = cfg.num_heads, cfg.head_dim
-    q = _mm(h, bp["wq"]).reshape(B, Sq, H, hd).transpose(1, 2)
+    q = _heads(h, bp["wq"], H, hd).transpose(1, 2)
     a = flash_attention(q, xk.transpose(1, 2), xv.transpose(1, 2), causal=False,
                         chunk=cfg.attn_chunk)
-    return _mm(a.transpose(1, 2).reshape(B, Sq, H * hd), bp["wo"])
+    return _mm(constrain_cols(a.transpose(1, 2).reshape(B, Sq, H * hd)), bp["wo"])
 
 
 def _dec_block(bp: Params, x, enc_out, cfg: ModelConfig):

@@ -277,33 +277,68 @@ def on_shards(fn, mesh, in_placements, out_placements):
                      in_grad_placements=grads, device_mesh=mesh, redistribute_inputs=True)
 
 
+def on_tokens(fn, acts, weights):
+    """``fn(*acts, *weights)``, token-wise in the (B, S, ...) activations
+    ``acts``.  On DTensors each rank takes its batch rows and, where S
+    divides `model`, its S / `model` tokens, with the weights whole
+    (``on_shards``: an fsdp split gathered first, the gradient a pending
+    sum over the axes that split the tokens); the output is placed as the
+    activations.  For products whose weights the rules leave whole over
+    `model` (RWKV's channel mix and decay LoRA, MLA's latent and rope-key
+    projections): without the split every `model` rank would run every
+    token's products.  Plain tensors: ``fn`` as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(acts[0], DTensor):
+        return fn(*acts, *weights)
+    mesh, (B, S) = acts[0].device_mesh, acts[0].shape[:2]
+    split = S % mesh_axis_size(mesh, "model") == 0
+    tok = with_model(mesh, row_placements(mesh, B), Shard(1) if split else Replicate())
+    whole = [Replicate()] * mesh.ndim
+    return on_shards(fn, mesh, (*(tok for _ in acts), *(whole for _ in weights)),
+                     tok)(*acts, *weights)
+
+
 def with_model(mesh, placements, p) -> List[Any]:
     """``placements`` on ``mesh`` with the `model` axis's entry ``p``."""
     return [p if n == "model" else q for n, q in zip(mesh.mesh_dim_names, placements)]
 
 
 class _Constrain(torch.autograd.Function):
-    """A DTensor redistributed to ``placements``, and its gradient too (the
-    transpose of a sharding constraint is the same constraint).  DTensor's
-    own ``redistribute`` sends the gradient back to the input's placements,
-    a pending sum among them, and the products of the backward then gather
+    """A DTensor redistributed to ``placements``, and its gradient to
+    ``grad_placements`` (the same placements unless given: the transpose of
+    a sharding constraint is the same constraint).  DTensor's own
+    ``redistribute`` sends the gradient back to the input's placements, a
+    pending sum among them, and the products of the backward then gather
     weights to multiply that pending sum whole."""
 
     @staticmethod
-    def forward(ctx, x, placements):
-        ctx.placements = placements
+    def forward(ctx, x, placements, grad_placements):
+        ctx.placements = grad_placements or placements
         return x.redistribute(x.device_mesh, placements)
 
     @staticmethod
     def backward(ctx, g):
-        return g.redistribute(g.device_mesh, ctx.placements), None
+        return g.redistribute(g.device_mesh, ctx.placements), None, None
 
 
-def constrain_rows(x):
+def grad_as_placed(x):
+    """``x`` unchanged, and its gradient placed as ``x`` is: the gradient of
+    a projection's output put back on its column shards before the
+    product's backward, which DTensor would otherwise run whole where the
+    attention took its rows over `model`.  Plain tensors pass through."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return _Constrain.apply(x, tuple(x.placements), None)
+
+
+def constrain_rows(x, grad_placements=None):
     """``x`` placed by ``row_placements``, a pending sum reduced, and its
-    gradient placed so too: the residual stream's layout between the
-    layers, as the specs give it (batch over the data axes, features whole
-    on every `model` rank; the counterpart of
+    gradient placed so too (or by ``grad_placements``): the residual
+    stream's layout between the layers, as the specs give it (batch over
+    the data axes, features whole on every `model` rank; the counterpart of
     ``with_sharding_constraint(x, P(batch_axes))``).  DTensor alone picks
     each op's output layout by its cost model, and moves the batch onto
     `model` too where that is cheaper for one op.  Plain tensors pass
@@ -312,7 +347,76 @@ def constrain_rows(x):
 
     if not isinstance(x, DTensor):
         return x
-    return _Constrain.apply(x, tuple(row_placements(x.device_mesh, x.shape[0])))
+    return _Constrain.apply(x, tuple(row_placements(x.device_mesh, x.shape[0])),
+                            grad_placements)
+
+
+def constrain_cols(x):
+    """``x`` (B, S, F) placed by ``row_placements`` with F split over
+    `model`, and its gradient so too: the input of a product whose weight
+    the specs split on its rows over `model` (an attention's ``wo``).  The
+    product is then local and its output a pending sum, as in the layers
+    whose heads `model` splits; where the attention took its rows over
+    `model` (``attention._on_shards``), DTensor would instead run the
+    weight's gradient whole on every `model` rank.  Plain tensors pass
+    through."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    return _Constrain.apply(x, tuple(with_model(mesh, row_placements(mesh, x.shape[0]),
+                                                Shard(2))), None)
+
+
+def row_mean(t, dims: Tuple[int, ...]):
+    """``t.mean(dim=dims)`` over leading dims that include its batch rows
+    (dim 0).  On DTensors each rank sums its own rows (``on_shards``) and
+    the sums are all-reduced over the batch axes, once, to a replicated
+    result: DTensor's own strategies for a mean over a split dim differ by
+    torch release (a reduce-scatter of the whole tensor in one, an
+    all-reduce of the result in another).  Plain tensors: ``mean``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(t, DTensor):
+        return t.mean(dim=dims)
+    mesh = t.device_mesh
+    rows = row_placements(mesh, t.shape[0])
+    count = 1
+    for d in dims:
+        count *= t.shape[d]
+    summed = on_shards(lambda u: u.sum(dim=dims), mesh, (rows,),
+                       [Partial() if p.is_shard() else Replicate() for p in rows])(t)
+    return summed.redistribute(mesh, [Replicate()] * mesh.ndim) / count
+
+
+def seq_axes(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The batch axes ``cfg.seq_parallel`` names (``"data"``, ``"pod,data"``;
+    empty: no sequence parallelism)."""
+    return tuple(a for a in cfg.seq_parallel.split(",") if a)
+
+
+def seq_placements(mesh, axes: Tuple[str, ...]) -> List[Any]:
+    """Placements of a (B, S, ...) activation held sequence-parallel:
+    ``Shard(0)`` on the batch ``axes``, ``Shard(1)`` on `model`,
+    ``Replicate()`` on the others (the reference's ``P(axes, "model",
+    None)``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(0) if n in axes else Shard(1) if n == "model" else Replicate()
+            for n in mesh.mesh_dim_names]
+
+
+def constrain_seq(x, axes: Tuple[str, ...], grad_placements=None):
+    """``x`` placed by ``seq_placements`` (a pending sum over `model`
+    reduce-scattered along S), and its gradient so too (or by
+    ``grad_placements``): the residual stream between and around the
+    blocks under ``cfg.seq_parallel``.  Plain tensors pass through."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return _Constrain.apply(x, tuple(seq_placements(x.device_mesh, axes)), grad_placements)
 
 
 def cache_pspec(cfg: ModelConfig, mesh, batch: int, leaf_path: Tuple[str, ...],

@@ -29,6 +29,9 @@ every count is **per device**, like the reference's post-SPMD counts:
 - ``collective_counts`` their number per kind
 - ``collective_bytes_by_axis`` the same bytes split by the mesh axis whose
                        group ran them, which the roofline prices by link
+- ``collective_elements_by_axis`` their output elements, split so too:
+                       what compares with a compiler that carries a
+                       collective in another dtype
 - ``peak_bytes``       the peak of bytes held by tensors the step made
                        (this rank's), the counterpart of XLA's temp size
 
@@ -74,6 +77,7 @@ class StepAnalysis:
     collective_bytes: Dict[str, float] = field(default_factory=dict)
     collective_counts: Dict[str, int] = field(default_factory=dict)
     collective_bytes_by_axis: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    collective_elements_by_axis: Dict[str, Dict[str, float]] = field(default_factory=dict)
     peak_bytes: int = 0
 
     @property
@@ -115,6 +119,7 @@ class _Recorder(TorchDispatchMode):
         self._cb: Dict[str, float] = defaultdict(float)
         self._cc: Dict[str, int] = defaultdict(int)
         self._by_axis: Dict[str, Dict[str, float]] = defaultdict(lambda: defaultdict(float))
+        self._el_by_axis: Dict[str, Dict[str, float]] = defaultdict(lambda: defaultdict(float))
         self._live: Dict[int, int] = {}
         self._cur = 0
         # storages the step was handed (its arguments): an op that writes
@@ -149,6 +154,7 @@ class _Recorder(TorchDispatchMode):
         self._cc[kind] += 1
         axis = self._group_axes.get(tuple(get_process_group_ranks(group)), "?")
         self._by_axis[axis][kind] += nbytes
+        self._el_by_axis[axis][kind] += sum(t.numel() for t in _tensors(out))
         for t in _tensors(out):
             self._track(t)
 
@@ -183,6 +189,7 @@ class _Recorder(TorchDispatchMode):
         self.out.collective_bytes = dict(self._cb)
         self.out.collective_counts = dict(self._cc)
         self.out.collective_bytes_by_axis = {a: dict(v) for a, v in self._by_axis.items()}
+        self.out.collective_elements_by_axis = {a: dict(v) for a, v in self._el_by_axis.items()}
         return self.out
 
 

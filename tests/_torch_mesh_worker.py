@@ -7,7 +7,12 @@ stablelm parameters and batch from seeds (``inputs``, shared with the
 test), places them by the specs' DTensor placements, reads them back with
 ``full_tensor()``, and takes one ``make_step_fn(api, "train", opt)`` step
 on the mesh, and the same step of one smoke model of each other family
-(``FAMILY_ARCHS``) on the (2, 2) mesh.  It writes what it saw to
+(``FAMILY_ARCHS``) on the (2, 2) mesh, and the gradients of a dense and an
+MoE decoder under ``seq_parallel="data"`` (``grads_on``), one decode step
+of the dense and the MLA decoder (``decode_on``), and the gradients of the
+attention on a (1, 4) mesh whose `model` axis the kv heads do not divide
+(``HEAD_SPLITS``).  It writes what it
+saw to
 ``OUT_DIR/rank<r>.pt``.
 """
 import os
@@ -28,14 +33,15 @@ FAMILY_ARCHS = ("moonshot-v1-16b-a3b", "deepseek-v2-236b", "rwkv6-1.6b", "jamba-
 FAMILY_S = 64
 
 
-def inputs(arch: str = ARCH, seq: int = S):
-    """(api, params, batch) of the smoke model, float32, from seeds; the
-    other families take a sequence of ``FAMILY_S``."""
+def inputs(arch: str = ARCH, seq: int = S, **overrides):
+    """(api, params, batch) of the smoke model (``cfg.replace(**overrides)``),
+    float32, from seeds; the other families take a sequence of
+    ``FAMILY_S``."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models.registry import get_model
 
-    cfg = get_config(arch).smoke()
+    cfg = get_config(arch).smoke().replace(**overrides)
     api = get_model(cfg)
     params = api.init(torch.Generator().manual_seed(SEED))
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -46,6 +52,41 @@ def inputs(arch: str = ARCH, seq: int = S):
                                                  "kind": "train"})(), seed=SEED).batch(0)["frames"]
         batch["frames"] = torch.from_numpy(frames)
     return api, params, batch
+
+
+# sequence parallelism over `model` (cfg.seq_parallel = "data"): one dense
+# and one MoE decoder, their loss and gradients on the (2, 2) mesh
+SEQ_PARALLEL_ARCHS = ("stablelm-3b", "moonshot-v1-16b-a3b")
+
+
+# the attention on a `model` axis of 4 that its 2 kv heads do not divide
+# (``attention._on_shards``): the (row, kv head) pairs split over it, with
+# the smoke's 2 query heads a kv head, or one
+HEAD_SPLITS = {"two-query-heads-a-kv-head": ("stablelm-3b", {}),
+               "one-query-head-a-kv-head": ("stablelm-3b", {"num_heads": 2, "num_kv_heads": 2}),
+               "encoder-decoder": ("whisper-base", {"num_heads": 2, "num_kv_heads": 2})}
+
+
+def grads_on(mesh, arch: str, shape: dict = None, **overrides) -> dict:
+    """The loss and every gradient leaf, whole, of ``arch`` (``FAMILY_S``
+    tokens, ``cfg.replace(**overrides)``) on ``mesh``, from the seeds'
+    parameters placed by the specs; ``shape``: ``cfg.replace(**shape)``
+    before the parameters are made."""
+    from repro_torch.launch import specs
+    from repro_torch.models.registry import get_model
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.utils.tree import tree_leaves, value_and_grad
+
+    api, params, batch = inputs(arch, FAMILY_S, **(shape or {}))
+    api = get_model(api.cfg.replace(**overrides))
+    placed = specs.distribute(params, shd.param_specs(params, api.cfg), mesh)
+    shape = type("S", (), {"global_batch": B, "seq_len": FAMILY_S, "kind": "train"})()
+    _, bspecs = specs.batch_specs(api.cfg, shape, mesh)
+    specs._register_dtensor_rules()
+    with specs._constants_replicated(placed, specs.distribute(batch, bspecs, mesh)):
+        (loss, _), grads = value_and_grad(api.loss_fn, placed,
+                                          specs.distribute(batch, bspecs, mesh))
+    return {"loss": loss.full_tensor(), "grads": [g.full_tensor() for g in tree_leaves(grads)]}
 
 
 def train_on(mesh, arch: str = ARCH, use_pallas: str = "") -> dict:
@@ -75,14 +116,19 @@ def train_on(mesh, arch: str = ARCH, use_pallas: str = "") -> dict:
 DECODE_B, DECODE_W, DECODE_AT = 1, 16, 5
 
 
-def decode_inputs():
+# the MLA decoder's decode step: its latent cache's slots split over both
+# axes (no kv heads to split over `model`)
+MLA_ARCH = "deepseek-v2-236b"
+
+
+def decode_inputs(arch: str = ARCH):
     """(api, params, token, cache) of one decode step of the smoke model:
     a batch of one against a cache of ``DECODE_W`` slots holding random
     keys and values, the new token written at slot ``DECODE_AT``."""
     from repro_torch.models.transformer import init_cache
     from repro_torch.utils.tree import tree_map
 
-    api, params, _ = inputs()
+    api, params, _ = inputs(arch)
     gen = torch.Generator().manual_seed(SEED + 2)
     cache = tree_map(lambda t: torch.randn(t.shape, generator=gen, dtype=t.dtype),
                      init_cache(api.cfg, DECODE_B, DECODE_W))
@@ -90,7 +136,7 @@ def decode_inputs():
     return api, params, token, cache
 
 
-def decode_on(mesh) -> dict:
+def decode_on(mesh, arch: str = ARCH) -> dict:
     """One ``make_step_fn(api, "decode")`` step on ``mesh``: batch 1 cannot
     split over `data`, so the cache's slots do (``cache_pspec``), and the new
     token's key and value land on the one rank that holds slot
@@ -99,7 +145,7 @@ def decode_on(mesh) -> dict:
     from repro_torch.parallel import sharding as shd
     from repro_torch.utils.tree import tree_leaves
 
-    api, params, token, cache = decode_inputs()
+    api, params, token, cache = decode_inputs(arch)
     placed = specs.distribute(params, shd.param_specs(params, api.cfg), mesh)
     cspecs = specs.cache_shardings(api.cfg, mesh, DECODE_B, cache)
     dcache = specs.distribute(cache, cspecs, mesh)
@@ -155,9 +201,15 @@ def on_mesh(out_dir: str) -> None:
         out["kernel_route_loss"] = kmetrics["loss"].full_tensor()
         mesh = make_mesh((2, 2), ("data", "model"), "cpu")
         out["decode"] = decode_on(mesh)
+        out["decode_mla"] = decode_on(mesh, MLA_ARCH)
         # the kernel's route with the heads split over `model` too
         out["kernel_route_2x2"] = train_on(mesh, use_pallas="always")["loss"]
         out["families"] = {arch: train_on(mesh, arch) for arch in FAMILY_ARCHS}
+        out["seq_parallel"] = {arch: grads_on(mesh, arch, seq_parallel="data")
+                               for arch in SEQ_PARALLEL_ARCHS}
+        mesh = make_mesh((1, 4), ("data", "model"), "cpu")
+        out["head_splits"] = {name: grads_on(mesh, arch, shape)
+                              for name, (arch, shape) in HEAD_SPLITS.items()}
     finally:
         dist.destroy_process_group()
     torch.save(out, Path(out_dir) / f"rank{out['rank']}.pt")

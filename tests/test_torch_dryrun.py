@@ -211,13 +211,15 @@ def test_dp_tp_all_reduces_the_gradients_of_the_replicated_leaves():
     every gradient, the embedding table's among them (each rank looks up its
     own rows: ``sharding.lookup``), is a partial sum all-reduced once; the
     moments are ZeRO-1 shards, so the update all-gathers each parameter's
-    float32 update once.  Nothing else crosses `data`."""
+    float32 update once; the loss's pending sum over the rows is reduced
+    once too (one float32), after the last of its chunks.  Nothing else
+    crosses `data`."""
     cfg = get_config("stablelm-3b").smoke().replace(sharding="dp_tp")
     rec = dryrun.dryrun_cfg(cfg, SMOKE_SHAPES["train"], mesh_of(2, 1))
     ana = rec["analyzed"]
     params = get_model(cfg).init(None, device="meta")
-    assert ana["collective_bytes"]["all-reduce"] == _leaf_bytes(params)
-    assert ana["collective_counts"]["all-reduce"] == len(tree_leaves(params))
+    assert ana["collective_bytes"]["all-reduce"] == _leaf_bytes(params) + 4
+    assert ana["collective_counts"]["all-reduce"] == len(tree_leaves(params)) + 1
     assert ana["collective_bytes"]["all-gather"] == sum(t.numel() * 4 for t in tree_leaves(params))
     assert ana["collective_counts"]["all-gather"] == len(tree_leaves(params))
     assert "reduce-scatter" not in ana["collective_bytes"]
@@ -312,3 +314,68 @@ def test_a_mesh_needs_an_open_process_group():
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode != 0 and "no process group is open" in r.stderr
+
+
+def _model_elements(cfg, mesh) -> dict:
+    rec = dryrun.dryrun_cfg(cfg, INPUT_SHAPES["train_4k"], mesh)
+    return rec["analyzed"]["collective_elements_by_axis"]["model"], rec
+
+
+def test_sequence_parallelism_moves_each_block_by_reduce_scatter_and_all_gather():
+    """stablelm-3b at full width on 16x16, train_4k, remat: one layer more
+    adds to `model`, per device, with X = B/16 x S x D the rows' residual
+    stream:
+
+    - without ``seq_parallel``: 5 all-reduces of X (the attention's and the
+      MLP's outputs, forward and backward, and the attention's again in the
+      recompute, which stops before the MLP's), and the two norms' weight
+      gradients (D each), pending sums of the products' input gradients;
+    - with ``seq_parallel="data"``: none of those, but 6 all-gathers of X
+      (each block's two normalised inputs, forward, recompute, and the
+      gradients of the two outputs) and 5 reduce-scatters of X / 16 (the
+      two outputs forward, the first again in the recompute, the two
+      inputs' gradients), and the two norms' weight gradients, whose rows
+      are now split over `model`.
+
+    The FLOPs do not move, and bytes are the elements in bf16 (2 each)."""
+    mesh = mesh_of(16, 16)
+    cfg, _ = dryrun.resolve_cfg("stablelm-3b", "train_4k")
+    shape = INPUT_SHAPES["train_4k"]
+    X = shape.global_batch // 16 * shape.seq_len * cfg.d_model
+    grow = {}
+    for sp in ("", "data"):
+        (one, r1), (two, r2) = (_model_elements(cfg.replace(num_layers=n, seq_parallel=sp), mesh)
+                                for n in (1, 2))
+        grow[sp] = {k: two.get(k, 0) - one.get(k, 0) for k in set(one) | set(two)}
+        grow[sp + "flops"] = r2["flops"] - r1["flops"]
+        b1 = r1["analyzed"]["collective_bytes_by_axis"]["model"]
+        b2 = r2["analyzed"]["collective_bytes_by_axis"]["model"]
+        for kind in ("all-gather", "reduce-scatter"):
+            assert b2.get(kind, 0) - b1.get(kind, 0) == 2 * grow[sp].get(kind, 0)
+    assert grow[""] == {"all-gather": 0, "all-reduce": 5 * X + 2 * cfg.d_model}
+    assert grow["data"] == {"all-gather": 6 * X, "reduce-scatter": 5 * X // 16,
+                            "all-reduce": 2 * cfg.d_model}
+    assert grow["flops"] == grow["dataflops"]
+
+
+def test_the_mamba_bcdt_product_gathers_nothing_over_model():
+    """jamba smoke (one super-block) on a (2, 4) mesh: every product with
+    ``w_bcdt``'s dt_rank + 2 d_state columns runs on a d_inner slice of
+    d_inner / 4 (``mamba._bcdt_proj``, forward and both products of its
+    backward), and the in-projection's 2 d_inner columns are never whole on
+    a rank (``mamba._in_proj``: one all-to-all over `model` where DTensor
+    gathered the product whole)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "benchmarks"))
+    from torch_dryrun_ops import ops_of
+
+    from repro_torch.models.mamba import dims
+
+    cfg = get_config("jamba-v0.1-52b").smoke()
+    di, dt_rank, n, _ = dims(cfg)
+    rec, ops = ops_of(cfg, SMOKE_SHAPES["train"], mesh_of(2, 4))
+    bcdt = [shapes for (op, shapes) in ops if any(dt_rank + 2 * n in s for s in shapes)]
+    assert len(bcdt) == 3                       # forward, and the two of its backward
+    assert all(di // 4 in sum(shapes, ()) and di not in sum(shapes, ()) for shapes in bcdt)
+    in_proj = [shapes for (op, shapes) in ops if any(2 * di in s for s in shapes)]
+    assert not in_proj                          # 2 d_inner is never whole on a rank
+    assert rec["analyzed"]["collective_counts"]["all-to-all"] > 0

@@ -18,7 +18,14 @@ starts its ranks).
 - The same step of one smoke model of each other family the dry run's
   fixed lowering touches (MoE, MLA, RWKV-6, Jamba, Whisper) on the (2, 2)
   mesh, and the kernel's route with the heads split over `model`: the
-  single-process loss within 1e-5, the parameters as above."""
+  single-process loss within 1e-5, the parameters as above.
+- A dense and an MoE decoder under ``seq_parallel="data"``, and the
+  attention on a (1, 4) mesh whose `model` axis the kv heads do not
+  divide: the loss and every gradient leaf of one process.
+- A decode step of batch 1, the cache's slots split over the mesh: the
+  dense decoder's (GQA, slots over `data`) and the MLA decoder's (latent
+  cache, slots over `data` and `model`: each rank's partial softmax merged
+  across both, flash-decoding) give one process's logits and cache."""
 import os
 import signal
 import subprocess
@@ -27,12 +34,13 @@ from pathlib import Path
 
 import pytest
 import torch
-from _torch_mesh_worker import DECODE_AT, FAMILY_ARCHS, FAMILY_S, decode_inputs, inputs
+from _torch_mesh_worker import (DECODE_AT, FAMILY_ARCHS, FAMILY_S, HEAD_SPLITS, MLA_ARCH,
+                                SEQ_PARALLEL_ARCHS, decode_inputs, inputs)
 
 from repro_torch.launch import specs
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.parallel import sharding as shd
-from repro_torch.utils.tree import tree_leaves, tree_paths
+from repro_torch.utils.tree import tree_leaves, tree_paths, value_and_grad
 
 REPO = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "_torch_mesh_worker.py"
@@ -124,6 +132,44 @@ def test_each_family_trains_on_the_mesh_as_in_one_process(ranks, arch):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("arch", SEQ_PARALLEL_ARCHS)
+def test_sequence_parallelism_gives_the_single_process_gradients(ranks, arch):
+    """``seq_parallel="data"`` on the (2, 2) mesh: the residual stream held
+    with S split over `model` around and inside each block
+    (``sharding.constrain_seq``), each block's normalised input gathered for
+    its products and their outputs reduce-scattered back.  The loss equals
+    the single process's within 1e-5 and every gradient leaf within 1e-5 of
+    its largest entry (float32, another summation order), for a dense and
+    an MoE decoder."""
+    api, params, batch = inputs(arch, FAMILY_S)
+    (loss, _), grads = value_and_grad(api.loss_fn, params, batch)
+    for r in ranks:
+        got = r["seq_parallel"][arch]
+        assert abs(float(got["loss"]) - float(loss)) <= 1e-5 * abs(float(loss))
+        for path, a, b in zip(tree_paths(grads), got["grads"], tree_leaves(grads)):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()) + 1e-12,
+                                       msg=path)
+
+
+@pytest.mark.parametrize("split", list(HEAD_SPLITS))
+def test_attention_on_a_model_axis_its_kv_heads_do_not_divide(ranks, split):
+    """A (1, 4) mesh of the same ranks, whose `model` axis the smoke's 2 kv
+    heads do not divide (``attention._on_shards``): the (row, kv head)
+    pairs split over it, a kv head with its 2 query heads or its one, in
+    the dense decoder and in Whisper's encoder, cross- and self-attention.
+    The loss and every gradient leaf equal one process's, as under sequence
+    parallelism."""
+    arch, shape = HEAD_SPLITS[split]
+    api, params, batch = inputs(arch, FAMILY_S, **shape)
+    (loss, _), grads = value_and_grad(api.loss_fn, params, batch)
+    for r in ranks:
+        got = r["head_splits"][split]
+        assert abs(float(got["loss"]) - float(loss)) <= 1e-5 * abs(float(loss))
+        for path, a, b in zip(tree_paths(grads), got["grads"], tree_leaves(grads)):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()) + 1e-12,
+                                       msg=path)
+
+
 def test_the_kernel_route_splits_heads_over_model(ranks):
     """The flash kernel's route (its plain version on CPU shards) under
     autograd with the heads split over a `model` axis of two ranks."""
@@ -149,6 +195,30 @@ def test_a_decode_step_writes_its_slot_on_the_rank_that_holds_it(ranks):
         assert r["decode"]["specs"]["blocks.k"][2] == "data"        # the slots' dim
         torch.testing.assert_close(r["decode"]["logits"], logits, rtol=1e-5, atol=1e-5)
         for got, want, old in zip(r["decode"]["cache"], tree_leaves(new_cache), before):
+            assert torch.equal(got[:, :, others], old[:, :, others])
+            torch.testing.assert_close(got[:, :, DECODE_AT], want[:, :, DECODE_AT],
+                                       rtol=1e-5, atol=1e-5)
+            assert not torch.equal(got[:, :, DECODE_AT], old[:, :, DECODE_AT])
+
+
+def test_an_mla_decode_step_merges_the_slots_split_over_both_axes(ranks):
+    """The MLA decoder (deepseek-v2 smoke) at batch 1 on the (2, 2) mesh:
+    no kv heads to split, so the latent cache's slots split over `data` and
+    `model`, four to a rank, and each rank's running max, denominator and
+    context over its slots are all-reduced over both axes
+    (``attention._latent_on_shards``).  The logits equal a single-process
+    decode's within 1e-5, and so does the written slot; every other slot is
+    untouched, bit for bit."""
+    api, params, token, cache = decode_inputs(MLA_ARCH)
+    before = [t.clone() for t in tree_leaves(cache)]
+    logits, new_cache = specs.make_step_fn(api, "decode")(params, {"tokens": token}, cache,
+                                                          DECODE_AT)
+    others = [i for i in range(before[0].shape[2]) if i != DECODE_AT]
+    for r in ranks:
+        got_specs = r["decode_mla"]["specs"]
+        assert got_specs["blocks.c_kv"][2] == ("data", "model")     # the slots' dim
+        torch.testing.assert_close(r["decode_mla"]["logits"], logits, rtol=1e-5, atol=1e-5)
+        for got, want, old in zip(r["decode_mla"]["cache"], tree_leaves(new_cache), before):
             assert torch.equal(got[:, :, others], old[:, :, others])
             torch.testing.assert_close(got[:, :, DECODE_AT], want[:, :, DECODE_AT],
                                        rtol=1e-5, atol=1e-5)

@@ -11,8 +11,8 @@ process-wide instead).  It asserts that the loss falls.
 
 The defaults (30 steps, S 256, batch 4) are the reference's; ``--steps 300``
 is the few-hundred-step run on the card.  On a CUDA device the step takes
-the float32 flash kernel (``csrc/flash_attn.cu``, head dim 64) and the
-codec kernels of ``--compression``.
+the float32 flash kernel (``csrc/flash_attn.cu``, head dim 64, on the tensor
+cores in 3xTF32) and the codec kernels of ``--compression``.
 
 Run:  python examples/torch_train_e2e.py --steps 300 --compression int8
       python examples/torch_train_e2e.py --device cpu --steps 3 --seq-len 64 --batch 2

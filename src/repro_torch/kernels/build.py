@@ -34,6 +34,7 @@ _SIGNATURES = {
     "repro_ternarize": [_P, _P, _P, _L, _P],
     "repro_dequantize_int8": [_P, _P, _P, _L, _P],
     "repro_probe_copy": [_P, _P, _L, _P],
+    "repro_empty": [_P],
     "repro_fused_add_f32": [_P, _P, _I, _L, _P],
     "repro_fused_add_bf16": [_P, _P, _I, _L, _P],
     "repro_flash_attn_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],

@@ -12,6 +12,10 @@
 // floats as two 16-byte loads and two 16-byte stores.  It is deliberately
 // not cudaMemcpyAsync, whose copy engine or copy kernel is another kind of
 // kernel than the ones it normalises.
+//
+// Beside it, the launch floor: an empty kernel of one block of one thread,
+// the least time a launch takes on the card, against which a kernel of
+// little work (a decode step) is read.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,6 +37,8 @@ probe_copy_kernel(const float* __restrict__ x, float* __restrict__ out, long lon
   dst[1] = b;
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 extern "C" int repro_probe_copy(const void* x, void* out, long long rows, void* stream) {
@@ -40,5 +46,10 @@ extern "C" int repro_probe_copy(const void* x, void* out, long long rows, void* 
   const unsigned int grid = static_cast<unsigned int>((rows + WARPS_PER_CTA - 1) / WARPS_PER_CTA);
   probe_copy_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(out), rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_empty(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

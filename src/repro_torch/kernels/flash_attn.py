@@ -9,8 +9,12 @@ Two CUDA kernels, one per input type:
   loads 128-row K and V tiles with TMA into a two-stage ring; both products
   run on the tensor cores with f32 accumulation, P rounded to bf16 in
   registers between them;
-- float32: ``csrc/flash_attn.cu``, FMAs on the CUDA cores (the tensor cores
-  would round f32 to TF32): one block per 64-row query tile.
+- float32: ``csrc/flash_attn.cu``, on the tensor cores in 3xTF32
+  (``mma.sync``; each f32 operand split into a TF32 high part and a
+  residual, three products summed in f32, as close as f32 itself): a block
+  owns 64 query rows, each 16 of them taken by two warps, one for either
+  half of every key tile; K and V tiles arrive by ``cp.async`` in two
+  stages and are split once a block.
 
 Both keep the running (max, denominator, accumulator) in f32 registers.
 Forward only: the gradient is taken through the plain chunked attention of

@@ -23,6 +23,20 @@ def np32(x) -> np.ndarray:
     return np.asarray(x.astype(jnp.float32) if jnp.issubdtype(x.dtype, jnp.floating) else x)
 
 
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round-to-nearest, ties away from zero, to TF32's 10-bit mantissa
+    (``cvt.rna.tf32.f32``), on the f32 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in 3xTF32: the small terms first, then the high parts."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
 def jax_tree_to_numpy(tree):
     """JAX parameter tree -> nested dict of numpy arrays (bf16 as float32)."""
     return jax.tree_util.tree_map(np32, tree)

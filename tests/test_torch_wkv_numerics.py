@@ -17,7 +17,7 @@ import sys
 import numpy as np
 import pytest
 import torch
-from _torch_port import np32, to_jax, to_torch
+from _torch_port import mm3, np32, tf32, to_jax, to_torch
 
 from repro.kernels.wkv import wkv_pallas
 from repro.models import rwkv as jr
@@ -26,20 +26,6 @@ from repro_torch.kernels import wkv as twkv
 TOL = dict(rtol=1e-4, atol=1e-4)    # chip_smoke.py [2e]
 C, SUB = 64, 16                     # the kernel's chunk and sub-chunk
 LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
-
-
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """Round-to-nearest, ties away from zero, to TF32's 10-bit mantissa
-    (``cvt.rna.tf32.f32``), on the f32 bits."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in 3xTF32: the small terms first, then the high parts."""
-    ah, bh = tf32(a), tf32(b)
-    al, bl = tf32(a - ah), tf32(b - bh)
-    return (al @ bh + ah @ bl) + ah @ bh
 
 
 def kernel_emulation(r, k, v, logw, u, s0):
@@ -233,3 +219,4 @@ def test_route_by_shape(S, hd, chunked):
 def test_value_columns_keep_about_128_blocks_in_flight(B, H, hd, ev):
     assert twkv.value_columns(B, H, hd) == ev
     assert hd % ev == 0 and 16 <= ev <= hd
+

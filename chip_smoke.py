@@ -1024,6 +1024,9 @@ def phase_probe(R_main: int) -> dict:
     else:
         check(False, "probe_copy_2d took rows off a 16-byte boundary")
     x = randn(R_main, 256, seed=430)
+    bits = x.view(-1).view(torch.int32)
+    bits[1], bits[2], bits[300] = 0x7FC00123, -(2 ** 31), -1     # a NaN's payload, -0.0, a NaN
+    bits[-1] = -(2 ** 31)
     out, ref = pb.probe_copy_2d(x), pb.probe_copy_2d_plain(x)
     torch.cuda.synchronize()
     check(torch.equal(_bits(out), _bits(ref)), "probe_copy_2d differs at the largest bucket")
@@ -1036,7 +1039,8 @@ def phase_probe(R_main: int) -> dict:
     plain_ms = statistics.median(times["empty_like + copy_"])
     nbytes = R_main * 256 * 4 * 2
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"  edge R=64 and R=1 (with NaN and -0.0): equal; largest stablelm-3b bucket R={R_main}: equal, "
+    print(f"  edge R=64 and R=1 (with NaN and -0.0): equal; largest stablelm-3b bucket R={R_main} "
+          f"(with NaNs and -0.0): equal, "
           f"kernel {ms:.3f} ms ({nbytes / ms / 1e6:.0f} GB/s), bound {bound_ms:.3f} ms (bytes)")
     spread = {}
     for name, ts in times.items():

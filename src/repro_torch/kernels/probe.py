@@ -4,9 +4,10 @@ Counterpart of ``probe_copy_2d`` in ``benchmarks/kernel_bench.py``.  The
 calibration (``benchmarks/torch_kernel_bench.py --calibrate``) divides each
 codec stage's time by this copy's, so the CUDA kernel in
 ``csrc/probe_copy.cu`` has the quantize kernels' launch shape (one warp per
-256-element row, 16-byte loads and stores): one read and one write per
-element of the same kind of kernel.  It lives in the package because the
-package builds every kernel of ``csrc/`` into one library.
+256-element row, 8 warps a block): one read and one write per element of the
+same kind of kernel, each warp-wide access 512 contiguous bytes, loads and
+stores evict-first in L2.  It lives in the package because the package
+builds every kernel of ``csrc/`` into one library.
 """
 from __future__ import annotations
 

@@ -404,19 +404,20 @@ def mla_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return out @ params["w_o"], {"c_kv": c_kv, "k_rope": k_rope}
 
 
-def _latent_on_shards(q_lat, q_rope, c_kv, k_rope, n_valid: int, scale: float):
+def _latent_on_shards(q_lat, q_rope, c_kv, k_rope, n_valid: int, divisor: float):
     """MLA decode's attention in the latent space: (B, H, L) context over
     the first ``n_valid`` slots of the latent cache c_kv (B, W, L) and rope
-    keys (B, W, R).  On DTensors each rank attends with its cache shard's
-    rows and slots, every head (``sharding.on_shards``), merged over the
-    axes that split W as ``_decode_on_shards`` does."""
+    keys (B, W, R), the summed scores divided by ``divisor`` as the
+    reference divides them.  On DTensors each rank attends with its cache
+    shard's rows and slots, every head (``sharding.on_shards``), merged over
+    the axes that split W as ``_decode_on_shards`` does."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     lo, groups = _cache_split(c_kv, 1)
 
     def attend(q_lat, q_rope, c_kv, k_rope):
         s = torch.einsum("bhl,bwl->bhw", q_lat.float(), c_kv.float())
-        s = (s + torch.einsum("bhr,bwr->bhw", q_rope.float(), k_rope.float())) * scale
+        s = (s + torch.einsum("bhr,bwr->bhw", q_rope.float(), k_rope.float())) / divisor
         slot = lo + torch.arange(c_kv.shape[1], device=c_kv.device)
         s = torch.where((slot < n_valid)[None, None, :], s, torch.full_like(s, NEG_INF))
         return _softmax_weigh(s, lambda p: torch.einsum("bhw,bwl->bhl", p, c_kv.float()), groups)
@@ -454,7 +455,7 @@ def mla_decode(params: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     w_uk = _model_only(params["w_uk"]).reshape(-1, H, hd)
     q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, :, 0], w_uk)
     ctx = _latent_on_shards(q_lat, q_rope[:, :, 0], cache["c_kv"], cache["k_rope"], n_valid,
-                            1.0 / math.sqrt(hd + R))                      # latent context
+                            math.sqrt(hd + R))                            # latent context
     w_uv = _model_only(params["w_uv"]).reshape(-1, H, hd)
     out = torch.einsum("bhl,lhd->bhd", ctx, w_uv.float())
     out = out.reshape(B, 1, H * hd).to(x.dtype)

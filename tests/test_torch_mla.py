@@ -9,9 +9,12 @@ f32) on parameters carried over by ``params_from_jax``:
   drop-free);
 - the latent cache's ``cache_spec`` / ``pad_cache`` / ``init_cache``;
 - MLA never takes the flash kernel: its attention is called without
-  ``cfg`` and its q/k dim (hd + R) is not its v dim (hd)."""
+  ``cfg`` and its q/k dim (hd + R) is not its v dim (hd);
+- the decode's latent scores divided by sqrt(hd + R) at deepseek-v2's
+  hd + R = 192, bit for bit as JAX divides them op by op."""
 import dataclasses
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -98,6 +101,73 @@ def test_mla_decode_matches_jax_and_writes_its_slot_in_place(cache_index):
     assert not np.array_equal(np32(new_t["c_kv"])[:, slot], c_kv[:, slot])
     untouched = [i for i in range(W) if i != slot]
     np.testing.assert_array_equal(np32(new_t["c_kv"])[:, untouched], c_kv[:, untouched])
+
+
+def _mla_decode_divisor(monkeypatch) -> float:
+    """What ``mla_decode`` hands ``_latent_on_shards`` to scale the scores
+    by, at deepseek-v2's hd + R = 128 + 64 (its smoke widths otherwise)."""
+    ct = tget(ARCH).smoke().replace(head_dim=128, mla_rope_dim=64)
+    seen, real = [], tattn._latent_on_shards
+
+    def spy(*args):
+        seen.append(args[-1])
+        return real(*args)
+
+    monkeypatch.setattr(tattn, "_latent_on_shards", spy)
+    params = tattn.init_mla(torch.Generator().manual_seed(0), ct)
+    cache = {"c_kv": torch.zeros(1, 4, ct.mla_kv_lora), "k_rope": torch.zeros(1, 4, ct.mla_rope_dim)}
+    tattn.mla_decode(params, torch.ones(1, 1, ct.d_model), cache, 0, ct)
+    assert len(seen) == 1
+    return seen[0]
+
+
+def _scaled_latent_scores(s: np.ndarray, divisor: float, monkeypatch) -> np.ndarray:
+    """The scores ``_latent_on_shards`` hands to the softmax when the summed
+    scores are ``s``: one latent dim whose query is 1 and whose cache holds
+    s, and rope keys of 0, so that the sum is s exactly."""
+    seen, real = [], tattn._softmax_weigh
+
+    def spy(scores, weigh, groups=()):
+        seen.append(scores.clone())
+        return real(scores, weigh, groups)
+
+    monkeypatch.setattr(tattn, "_softmax_weigh", spy)
+    W, R = s.size, 64
+    tattn._latent_on_shards(torch.ones(1, 1, 1), torch.zeros(1, 1, R), to_torch(s).reshape(1, W, 1),
+                            torch.zeros(1, W, R), W, divisor)
+    return seen[0].reshape(-1).numpy()
+
+
+def _latent_score_draws() -> np.ndarray:
+    """65,536 N(0, 10^2) float32 scores and -4.338788032531738, whose
+    quotient by sqrt(192) and product with its float32 reciprocal differ."""
+    s = np.random.default_rng(0).normal(0.0, 10.0, 65536).astype(np.float32)
+    return np.append(s, np.float32(-4.338788032531738))
+
+
+def test_mla_decode_divides_its_latent_scores_as_jax(monkeypatch):
+    """JAX's ``s / math.sqrt(hd + R)`` (``repro.models.attention.mla_decode``)
+    taken op by op, against the port's scores through the divisor
+    ``mla_decode`` passes and ``_latent_on_shards``' divide: equal bit for
+    bit.  A multiply by the reciprocal differs by one ulp in 28,458 of the
+    65,536 draws."""
+    s = _latent_score_draws()
+    ours = _scaled_latent_scores(s, _mla_decode_divisor(monkeypatch), monkeypatch)
+    ref = np.asarray(jnp.divide(jnp.asarray(s), math.sqrt(192)))
+    np.testing.assert_array_equal(ours.view(np.int32), ref.view(np.int32))
+    assert float(ours[-1]) == -0.3131250739097595
+
+
+def test_mla_decode_scores_are_within_an_ulp_of_the_compiled_reference(monkeypatch):
+    """Under ``jax.jit`` XLA folds a divide by a constant into a multiply by
+    its float32 reciprocal (the compiled ``mla_decode`` holds the constant
+    1/sqrt(hd + R)), so the compiled reference's scores are the
+    reciprocal's: within one ulp of the port's divide."""
+    s = _latent_score_draws()
+    ours = _scaled_latent_scores(s, _mla_decode_divisor(monkeypatch), monkeypatch)
+    compiled = np.asarray(jax.jit(lambda a: a / math.sqrt(192))(jnp.asarray(s)))
+    ulps = np.abs(ours.view(np.int32).astype(np.int64) - compiled.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 1
 
 
 def test_loss_and_every_gradient_leaf():

@@ -91,7 +91,9 @@ through their entry points:
   gathers over `pod` no more than its bf16 parameters a device, and that
   every combination's FLOPs and collective bytes by kind and axis equal the
   committed ``artifacts/dryrun/torch_results.json`` (traced on a CPU under
-  another torch release);
+  another torch release), and prints on one line the long_500k FLOPs and
+  `data` bytes a device of seven architectures beside the record before
+  their products were split over `data` (``PARENT_LONG_500K``);
 - last (phase 37), ``examples/torch_train_e2e.main``: repro-100m (the
   reference example's ~100M float32 decoder), S 256, batch 4, 300 steps
   under each of none, fp16, int8, ternary and topk, every loss falling and
@@ -2047,7 +2049,8 @@ DRYRUN_JOBS = ([(a, "train_4k", pod, False) for a in DRYRUN_ARCHS for pod in (Fa
                                                         "whisper-base", "internvl2-2b")]
                + [("whisper-base", "prefill_32k", True, True),
                   ("internvl2-2b", "prefill_32k", False, False)]
-               + [(a, s, False, False) for a in DRYRUN_ARCHS for s in ("decode_32k", "long_500k")]
+               + [(a, s, False, False) for a in DRYRUN_ARCHS + ["command-r-35b"]
+                  for s in ("decode_32k", "long_500k")]
                + [(a, "decode_32k", True, True) for a in ("stablelm-3b", "moonshot-v1-16b-a3b",
                                                           "jamba-v0.1-52b")]
                + [(a, "long_500k", True, True) for a in ("stablelm-3b", "jamba-v0.1-52b",
@@ -2102,6 +2105,33 @@ def check_pod_halves(recs: list) -> None:
 
 
 DRYRUN_RECORD = REPO / "artifacts" / "dryrun" / "torch_results.json"
+
+
+# long_500k on 16x16 as the committed record held it before the lowering
+# that splits a batch of one's products over `data` (``layers.project``):
+# per device, (FLOPs, `data` collective bytes), every layer and shape as
+# configured; each `data` rank ran the whole step, and the fsdp models
+# gathered their weights over `data` first
+PARENT_LONG_500K = {"stablelm-3b": (3.385754e8, 2.0992e4), "moonshot-v1-16b-a3b": (3.525041e9, 2.4960e4),
+                    "internvl2-2b": (2.156134e8, 1.99680e5), "command-r-35b": (2.852782e9, 3.033190e9),
+                    "deepseek-v2-236b": (3.063829e10, 3.044186e10), "rwkv6-1.6b": (1.697788e9, 0.0),
+                    "jamba-v0.1-52b": (6.167267e9, 6.025553e9)}
+
+
+def print_long_context(recs: list) -> None:
+    """One line: each ``PARENT_LONG_500K`` architecture's long_500k FLOPs and
+    `data` collective bytes a device on 16x16, from this run, beside the
+    record before the repair."""
+    got = {r["arch"]: r for r in recs if r["status"] == "ok" and r["shape"] == "long_500k"
+           and r["mesh"] == "16x16" and not r["production"]}
+    check(set(PARENT_LONG_500K) <= set(got), f"long_500k rows missing: "
+                                             f"{sorted(set(PARENT_LONG_500K) - set(got))}")
+    line = {a: {"flops": got[a]["analyzed"]["flops"],
+                "data_bytes": sum(got[a]["analyzed"]["collective_bytes_by_axis"].get("data", {})
+                                  .values()),
+                "parent_flops": f, "parent_data_bytes": b}
+            for a, (f, b) in PARENT_LONG_500K.items()}
+    print("  long_500k a device on 16x16, this run beside the parent's record: " + json.dumps(line))
 
 
 def check_against_record(recs: list) -> None:
@@ -2199,6 +2229,7 @@ def phase_dryrun(parallel: int = 8) -> list:
     check(any(r["status"] == "skipped" for r in recs), "whisper-base x long_500k must be skipped")
     check_pod_halves(recs)
     check_against_record(recs)
+    print_long_context(recs)
     rows = roofline.load_table(merged)
     print(roofline.to_markdown(rows), end="")
     print(f"  {len(recs)} combinations, no FAIL; phase wall {time.perf_counter() - t_phase:.1f} s "

@@ -17,7 +17,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attn import flash_attention_cuda
 from repro_torch.models.layers import (Params, _device_of, _model_only, apply_rope, dense_init,
-                                       rms_norm, torch_dtype)
+                                       project, rms_norm, torch_dtype)
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import write_at
 
@@ -329,9 +329,9 @@ def gqa_decode(params: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     W = cache["k"].shape[1]
     cache_index = int(cache_index)
-    q = (x @ params["wq"]).reshape(B, 1, H, hd).transpose(1, 2)
-    k = (x @ params["wk"]).reshape(B, 1, KV, hd)
-    v = (x @ params["wv"]).reshape(B, 1, KV, hd)
+    q = project(x, params["wq"]).reshape(B, 1, H, hd).transpose(1, 2)
+    k = project(x, params["wk"]).reshape(B, 1, KV, hd)
+    v = project(x, params["wv"]).reshape(B, 1, KV, hd)
     pos = torch.tensor([cache_index], device=x.device)           # absolute position
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
@@ -341,7 +341,7 @@ def gqa_decode(params: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     n_valid = min(cache_index + 1, W)
     out = _decode_on_shards(q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2), n_valid)
     out = out.transpose(1, 2).reshape(B, 1, H * hd)
-    return out @ params["wo"], cache
+    return project(out, params["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -370,14 +370,17 @@ def _mla_qkv(params, x, cfg: ModelConfig, pos):
     B, S, _ = x.shape
     H, hd, R = cfg.num_heads, cfg.head_dim, cfg.mla_rope_dim
     # x's gradient from q (a pending sum over `model`) reduced before it
-    # meets the latent projections' (whole over `model`)
-    q = (shd.constrain_rows(x) @ _model_only(params["w_q"])).reshape(B, S, H, hd + R)
+    # meets the latent projections' (whole over `model`); where the rows are
+    # whole over `data`, x is the stream's d_model slice (``project``)
+    q = project(x if shd.rows_whole(x) else shd.constrain_rows(x), params["w_q"], True)
+    q = q.reshape(B, S, H, hd + R)
     q = q.transpose(1, 2)
     q_nope, q_rope = q[..., :hd], q[..., hd:]
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
     # the latent and rope-key projections are whole over `model`: split by
-    # tokens (``sharding.on_tokens``), then gathered to rows
-    c_kv, k_rope = (shd.constrain_rows(shd.on_tokens(torch.matmul, (x,), (params[k],)))
+    # tokens or by their columns (``sharding.token_product``), then gathered
+    # to rows
+    c_kv, k_rope = (shd.constrain_rows(shd.token_product(x, params[k]))
                     for k in ("w_dkv", "w_kr"))
     c_kv = rms_norm(c_kv, params["ln_kv"], cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, None], pos, cfg.rope_theta)[:, 0]
@@ -450,13 +453,37 @@ def mla_decode(params: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     write_at(cache["k_rope"], 1, slot, kr_new[:, 0])
     n_valid = min(cache_index + 1, W)
     # (B, H, hd) x (L, H, hd) -> the query in the latent space (B, H, L)
-    # the up-projections and w_o gathered over the fsdp axis (``_model_only``):
-    # their contracted dims would otherwise meet the batch rows split over it
-    w_uk = _model_only(params["w_uk"]).reshape(-1, H, hd)
-    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, :, 0], w_uk)
+    q_lat = _up_product("bhd,lhd->bhl", q_nope[:, :, 0], params["w_uk"], H, hd)
     ctx = _latent_on_shards(q_lat, q_rope[:, :, 0], cache["c_kv"], cache["k_rope"], n_valid,
                             math.sqrt(hd + R))                            # latent context
-    w_uv = _model_only(params["w_uv"]).reshape(-1, H, hd)
-    out = torch.einsum("bhl,lhd->bhd", ctx, w_uv.float())
+    out = _up_product("bhl,lhd->bhd", ctx, params["w_uv"], H, hd)
     out = out.reshape(B, 1, H * hd).to(x.dtype)
-    return out @ _model_only(params["w_o"]), cache
+    return project(out, params["w_o"], True), cache
+
+
+def _up_product(eq: str, a, w, H: int, hd: int):
+    """``einsum(eq, a, w)`` of a (B, H, .) activation and an up-projection
+    (L, H * hd) seen as (L, H, hd), in ``a``'s dtype (``w_uk`` absorbed into
+    the query, ``w_uv`` applied to the float32 latent context).  On DTensors the weight
+    is gathered over every mesh axis but `model` (``_model_only``: its
+    contracted dims would otherwise meet the batch rows split over the fsdp
+    axis); where the rows are whole over `data` (``sharding.rows_whole``)
+    it stays on its own shard instead, L over `data` and the heads over
+    `model` (``sharding.on_shards``): the query comes out with its L split
+    over `data` and is gathered over it (the latent scores take it whole),
+    the values as a pending sum over `data`, reduced here."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    if not shd.rows_whole(a):
+        return torch.einsum(eq, a, _model_only(w).reshape(-1, H, hd).to(a.dtype))
+    mesh = a.device_mesh
+    w = w.reshape(-1, H, hd)
+
+    def over(data, model):
+        return [data if n == "data" else model if n == "model" else Replicate()
+                for n in mesh.mesh_dim_names]
+    a_l = eq.startswith("bhl")                          # the activation's last dim is L
+    y = shd.on_shards(lambda a, w: torch.einsum(eq, a, w.to(a.dtype)), mesh,
+                      (over(Shard(2) if a_l else Replicate(), Shard(1)), over(Shard(0), Shard(1))),
+                      over(Partial() if a_l else Shard(2), Shard(1)))(a, w)
+    return y.redistribute(mesh, over(Replicate(), Shard(1)))

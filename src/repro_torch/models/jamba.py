@@ -30,7 +30,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (Params, _device_of, chunked_softmax_xent, dense_init,
-                                       embed_init, init_mlp, mlp, rms_norm, torch_dtype)
+                                       embed_init, init_mlp, mlp, project, rms_norm, torch_dtype)
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import lookup
 from repro_torch.utils.tree import tree_map
@@ -196,17 +196,18 @@ def _layer_decode(lp: Params, x, cache, cache_index: int, cfg: ModelConfig,
         a, new_state = mamba_lib.mamba_decode(lp["ssm"], h, cache, cfg)
         for key, val in new_state.items():
             cache[key].copy_(val)
-    x = x + shd.constrain_rows(a)
+    x = x + shd.constrain_stream(a)
     h = rms_norm(x, lp["ln2"]["w"], cfg.norm_eps)
     m = moe_lib.moe_block(lp["moe"], h, cfg)[0] if use_moe else mlp(lp["mlp"], h)
-    return x + shd.constrain_rows(m)
+    return x + shd.constrain_stream(m)
 
 
 def decode_step(params: Params, token: torch.Tensor, cache, cache_index, cfg: ModelConfig):
     """token: (B, 1) int; cache_index: tokens already cached (an int).
-    Returns (logits (B, 1, V), cache), the cache the one passed in."""
+    Returns (logits (B, 1, V), cache), the cache the one passed in.  The
+    residual stream is held as ``transformer.decode_step`` holds it."""
     cache_index = int(cache_index)
-    x = shd.constrain_rows(lookup(params["embed"]["w"], token))
+    x = shd.constrain_stream(lookup(params["embed"]["w"], token))
     layout = block_layout(cfg)
     for j in range(n_super_blocks(cfg)):
         for i, (mixer, use_moe) in enumerate(layout):
@@ -214,4 +215,4 @@ def decode_step(params: Params, token: torch.Tensor, cache, cache_index, cfg: Mo
             lc = {key: val[j] for key, val in cache[f"l{i}"].items()}
             x = _layer_decode(lp, x, lc, cache_index, cfg, mixer, use_moe)
     x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
-    return x @ params["lm_head"]["w"], cache
+    return project(x, params["lm_head"]["w"]), cache

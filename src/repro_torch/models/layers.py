@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import row_placements
 from repro_torch.utils.tree import tree_leaves
 
@@ -90,11 +91,38 @@ def embed_init(gen: Optional[torch.Generator], shape: Sequence[int], dtype: torc
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor) and any(p.is_shard(x.dim() - 1) for p in x.placements):
+        return _rms_norm_split(x, weight, eps)
     dtype = x.dtype
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * weight.float()).to(dtype)
+
+
+def _rms_norm_split(x, weight, eps: float):
+    """``rms_norm`` of a DTensor split on its last dim (the residual stream
+    over `data` where the rows are whole over it,
+    ``sharding.constrain_stream``): each rank sums its slice's squares, the
+    sums are all-reduced over the axes that split the dim, and each rank
+    scales its slice (``sharding.on_shards``).  DTensor's own strategy for
+    the mean over a split dim differs by torch release."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, last, n = x.device_mesh, x.dim() - 1, x.shape[-1]
+    pl = list(x.placements)
+    if any(not (p.is_shard() or p.is_replicate()) for p in pl):
+        raise ValueError(f"rms_norm takes no pending sum: {pl}")
+    sq = shd.on_shards(lambda t: torch.sum(torch.square(t.float()), dim=-1, keepdim=True), mesh,
+                       (pl,), [Partial() if p.is_shard(last) else p for p in pl])(x)
+    sq = sq.redistribute(mesh, [Replicate() if p.is_partial() else p for p in sq.placements])
+    wpl = [Shard(0) if p.is_shard(last) else Replicate() for p in pl]
+
+    def scale(t, s, w):
+        return (t.float() * torch.rsqrt(s / n + eps) * w.float()).to(t.dtype)
+    return shd.on_shards(scale, mesh, (pl, list(sq.placements), wpl), pl)(x, sq, weight)
 
 
 # ---------------------------------------------------------------------------
@@ -149,10 +177,41 @@ def _model_only(w):
     return w if pl == list(w.placements) else w.redistribute(w.device_mesh, pl)
 
 
+def project(x: torch.Tensor, w: torch.Tensor, gather: bool = False) -> torch.Tensor:
+    """``x @ w``, a layer's product with one of its weights.  Where the
+    batch rows are whole over `data` (``sharding.rows_whole``: a batch
+    smaller than the data ways, as at long-context decode) the product is
+    split over `data` on the weight's own shard (``sharding.linear``): the
+    fsdp weights are never gathered, and no `data` rank repeats another's
+    work.  Elsewhere ``x @ w``, with ``gather`` the weight first gathered
+    over every mesh axis but `model` (``_model_only``)."""
+    if shd.rows_whole(x):
+        return shd.linear(x, w)
+    if gather and shd.rows_gathered(x, w):
+        return _rows_gathered(x, w)
+    return x @ (_model_only(w) if gather else w)
+
+
+def _rows_gathered(x, w):
+    """``x @ w`` for a weight whose output columns the specs split over
+    `data`, at a decode step's few rows (``sharding.rows_gathered``): the
+    rows gathered over `data`, each rank's product with its own columns,
+    one all-to-all back to its rows (``sharding.rows_to_columns``); over
+    `model` as ``x @ w``: a pending sum where it splits the contraction."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh, names = x.device_mesh, x.device_mesh.mesh_dim_names
+    xin = [Replicate() if n == "data" else p for n, p in zip(names, x.placements)]
+    out = [px if n == "data" else Partial() if pw.is_shard(0) else px
+           for n, px, pw in zip(names, x.placements, w.placements)]
+    return shd.on_shards(lambda a, b: shd.rows_to_columns(a @ b, mesh, "data"), mesh,
+                         (xin, list(w.placements)), out)(x, w)
+
+
 def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
-    wg, wi, wo = (_model_only(params[k]) for k in ("wg", "wi", "wo"))
-    h = torch.nn.functional.silu(x @ wg) * (x @ wi)
-    return h @ wo
+    wg, wi, wo = (params[k] for k in ("wg", "wi", "wo"))
+    h = torch.nn.functional.silu(project(x, wg, True)) * project(x, wi, True)
+    return project(h, wo, True)
 
 
 # ---------------------------------------------------------------------------

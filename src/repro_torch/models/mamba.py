@@ -50,7 +50,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan import discretise, ssm_scan, ssm_scan_fused, ssm_scan_plain
 from repro_torch.models.attention import use_pallas
-from repro_torch.models.layers import Params, _device_of, dense_init, torch_dtype
+from repro_torch.models.layers import Params, _device_of, dense_init, project, torch_dtype
 from repro_torch.parallel import sharding as shd
 
 
@@ -217,26 +217,6 @@ def _channels(x):
             lambda d: shd.with_model(mesh, [Replicate()] * mesh.ndim, Shard(d)))
 
 
-class _AllToAll(torch.autograd.Function):
-    """``all_to_all_single`` over ``group`` along dim 0 (``recv`` / ``send``:
-    rows from / to each rank), its backward the reverse exchange."""
-
-    @staticmethod
-    def forward(ctx, x, recv, send, group):
-        from torch.distributed import _functional_collectives as funcol
-
-        ctx.args = (send, recv, group)
-        return funcol.wait_tensor(funcol.all_to_all_single(x, recv, send, group))
-
-    @staticmethod
-    def backward(ctx, g):
-        from torch.distributed import _functional_collectives as funcol
-
-        send, recv, group = ctx.args
-        return (funcol.wait_tensor(funcol.all_to_all_single(g.contiguous(), send, recv, group)),
-                None, None, None)
-
-
 def _in_proj(x, w_in, di: int):
     """(xs, z): ``x @ w_in`` split into its two d_inner halves.
 
@@ -250,7 +230,7 @@ def _in_proj(x, w_in, di: int):
     in backward its gradient, by choices that differ by torch release."""
     from torch.distributed.tensor import DTensor, Shard
 
-    xz = x @ w_in                                        # (B, S, 2*di)
+    xz = project(x, w_in)                                # (B, S, 2*di)
     m = shd.mesh_axis_size(xz.device_mesh, "model") if isinstance(xz, DTensor) else 1
     if m == 1 or m % 2 or di % m:
         return xz[..., :di], xz[..., di:]
@@ -265,7 +245,7 @@ def _in_proj(x, w_in, di: int):
         dest = [2 * (r % (m // 2)), 2 * (r % (m // 2)) + 1]
         send = [half if k in dest else 0 for k in range(m)]
         recv = [half if k in (r // 2, m // 2 + r // 2) else 0 for k in range(m)]
-        got = _AllToAll.apply(block, recv, send, group)
+        got = shd.AllToAll.apply(block, recv, send, group)
         return got[:half].permute(1, 2, 0), got[half:].permute(1, 2, 0)
 
     ch = shd.with_model(mesh, shd.row_placements(mesh, xz.shape[0]), Shard(2))
@@ -414,7 +394,7 @@ def mamba_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig,
     h0 = state["ssm"] if state is not None else None
     y, h_final = _scan_on_shards(cfg, use_pallas(cfg, x), dt, xs, b_t, c_t, a, h0)
     y = _gate(y, xs, z, params["d_skip"], x.dtype)
-    out = y @ params["w_out"]
+    out = project(y, params["w_out"])
     return out, {"conv": conv_state, "ssm": h_final.float()}
 
 

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.models.layers import Params, _model_only, dense_init, init_mlp, mlp, torch_dtype
+from repro_torch.models.layers import Params, dense_init, init_mlp, mlp, project, torch_dtype
 from repro_torch.parallel import sharding as shd
 
 
@@ -67,14 +67,58 @@ def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
+def _expert_in(x, disp, wg, wi):
+    """The dispatch and the experts' two input products: (E, B, C, F) each."""
+    xin = torch.einsum("bsec,bsd->ebcd", disp.to(x.dtype), x)    # (E,B,C,D)
+    return torch.einsum("ebcd,edf->ebcf", xin, wg), torch.einsum("ebcd,edf->ebcf", xin, wi)
+
+
+def _expert_out(g, i, comb, wo):
+    """The experts' SwiGLU from its two input products, their output
+    product and the combine: (B, S, D)."""
+    out_e = torch.einsum("ebcf,efd->ebcd", F.silu(g) * i, wo)    # (E,B,C,D)
+    return torch.einsum("bsec,ebcd->bsd", comb.to(out_e.dtype), out_e)
+
+
 def _experts(x, disp, comb, wg, wi, wo):
     """Dispatch, the experts' SwiGLU and the combine: (B, S, D) -> (B, S, D)."""
-    dt = x.dtype
-    xin = torch.einsum("bsec,bsd->ebcd", disp.to(dt), x)         # (E,B,C,D)
-    h = F.silu(torch.einsum("ebcd,edf->ebcf", xin, wg))
-    h = h * torch.einsum("ebcd,edf->ebcf", xin, wi)
-    out_e = torch.einsum("ebcf,efd->ebcd", h, wo)                # (E,B,C,D)
-    return torch.einsum("bsec,ebcd->bsd", comb.to(dt), out_e)
+    return _expert_out(*_expert_in(x, disp, wg, wi), comb, wo)
+
+
+def _experts_rows_whole(x, disp, comb, wg, wi, wo):
+    """``_experts`` where the batch rows are whole over `data`
+    (``sharding.rows_whole``; ``x`` the stream split on d_model over it),
+    each rank on the expert weights' own shards (``sharding.on_shards``):
+    over `model` its experts or d_ff columns, as ``_experts_on_shards``;
+    over `data` the weights' fsdp split.  Where that split is on d_model
+    (or there is none: a whole weight is sliced), the input products
+    contract each rank's d_model slice, pending sums all-reduced over
+    `data`, and the output product writes its d_model slice, the stream's
+    own; where it is on d_ff (``moe_shard="edim_dff"``) the stream is
+    gathered over `data`, the input products write each rank's d_ff slice
+    and the output product is a pending sum.  The output is a pending sum
+    over `model`."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, names = x.device_mesh, x.device_mesh.mesh_dim_names
+
+    def pl(data, model):
+        return [data if n == "data" else model if n == "model" else Replicate() for n in names]
+    model = wi.placements[names.index("model")]
+    ep, dff = model.is_shard(0), model.is_shard(2)                # experts | d_ff over `model`
+    d_dff = wi.placements[names.index("data")].is_shard(2)        # fsdp on d_ff
+    w_in = pl(Shard(2) if d_dff else Shard(1), model)
+    hpl = pl(Shard(3) if d_dff else Partial(), Shard(0) if ep else Shard(3) if dff else Replicate())
+    oh = pl(Replicate(), Shard(2) if ep else Replicate())
+    xpl = pl(Replicate() if d_dff else Shard(2), Replicate())
+    g, i = shd.on_shards(_expert_in, mesh, (xpl, oh, w_in, w_in), (hpl, hpl))(x, disp, wg, wi)
+    if not d_dff:
+        g, i = (t.redistribute(mesh, pl(Replicate(), t.placements[names.index("model")]))
+                for t in (g, i))
+    w_out = pl(Shard(1) if d_dff else Shard(2), Shard(0) if ep else Shard(1) if dff else Replicate())
+    out = pl(Partial() if d_dff else Shard(2), Partial() if ep or dff else Replicate())
+    hpl = [Replicate() if p.is_partial() else p for p in hpl]
+    return shd.on_shards(_expert_out, mesh, (hpl, hpl, oh, w_out), out)(g, i, comb, wo)
 
 
 def _experts_on_shards(x, disp, comb, wg, wi, wo):
@@ -89,6 +133,8 @@ def _experts_on_shards(x, disp, comb, wg, wi, wo):
 
     if not isinstance(x, DTensor):
         return _experts(x, disp, comb, wg, wi, wo)
+    if shd.rows_whole(x):
+        return _experts_rows_whole(x, disp, comb, wg, wi, wo)
     mesh = x.device_mesh
     names = mesh.mesh_dim_names
     rows = shd.row_placements(mesh, x.shape[0])
@@ -102,6 +148,18 @@ def _experts_on_shards(x, disp, comb, wg, wi, wo):
     else:
         oh, w_in, w_out = rows, whole, whole
     out = shd.with_model(mesh, rows, Partial()) if split.is_shard() else rows
+    data = names.index("data") if "data" in names else None
+    if (split.is_shard(0) and data is not None and rows[data].is_shard()
+            and wo.placements[data].is_shard(2) and x.shape[0] * disp.shape[-1] < wo.shape[-1]):
+        # a decode step: its few rows gathered over `data` for the output
+        # product and the combine, wo left on its d_model columns, one
+        # all-to-all back to the rows (sharding.rows_gathered)
+        h = shd.with_model(mesh, [Shard(1) if p.is_shard() else p for p in rows], Shard(0))
+        g, i = shd.on_shards(_expert_in, mesh, (rows, oh, w_in, w_in), (h, h))(x, disp, wg, wi)
+        h_all, oh_all = ([Replicate() if k == data else p for k, p in enumerate(t)] for t in (h, oh))
+        w_cols = [Shard(2) if k == data else p for k, p in enumerate(w_out)]
+        return shd.on_shards(lambda *t: shd.rows_to_columns(_expert_out(*t), mesh, "data"), mesh,
+                             (h_all, h_all, oh_all, w_cols), out)(g, i, comb, wo)
     fn = shd.on_shards(_experts, mesh, (rows, oh, oh, w_in, w_in, w_out), out)
     return fn(x, disp, comb, wg, wi, wo)
 
@@ -115,7 +173,10 @@ def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig
     E, K = moe.num_experts, moe.top_k
     C = min(expert_capacity(moe, S), S)
 
-    logits = (x @ _model_only(params["router"])).float()        # (B,S,E)
+    logits = project(x, params["router"], True)
+    if shd.rows_whole(x):                    # its columns split over `model` (sharding.linear)
+        logits = shd.constrain_rows(logits)
+    logits = logits.float()                                      # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, K)                        # (B,S,K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)

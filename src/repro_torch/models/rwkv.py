@@ -36,7 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.wkv import wkv, wkv_plain
 from repro_torch.models.attention import use_pallas
 from repro_torch.models.layers import (Params, _device_of, chunked_softmax_xent, dense_init,
-                                       embed_init, rms_norm, torch_dtype)
+                                       embed_init, project, rms_norm, torch_dtype)
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import lookup
 from repro_torch.utils.tree import tree_map
@@ -190,8 +190,8 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 
 
 def _decay(params: Params, xw: torch.Tensor) -> torch.Tensor:
-    lora = shd.constrain_rows(shd.on_tokens(lambda x, a: torch.tanh(x @ a), (xw,),
-                                         (params["w_decay_lora_a"],))) @ params["w_decay_lora_b"]
+    lo = torch.tanh(shd.token_product(xw, params["w_decay_lora_a"]))
+    lora = shd.constrain_rows(lo) @ params["w_decay_lora_b"]
     return -torch.exp(params["w_decay"] + lora.float())               # logw <= 0
 
 
@@ -208,20 +208,20 @@ def time_mix(params: Params, x: torch.Tensor, cfg: ModelConfig,
     """x: (B, S, D) -> (out, {state, tm_x})."""
     B, S, D = x.shape
     H, hd = head_dims(cfg)
-    prev = shd.constrain_rows(state["tm_x"]) if state is not None else x.new_zeros((B, D))
+    prev = shd.constrain_stream(state["tm_x"]) if state is not None else x.new_zeros((B, D))
     xs = _token_shift(x, prev)
     mu = params["mix"].to(x.dtype)                                     # (5, D)
     mr, mk, mv, mw, mg = (x + mu[i] * (xs - x) for i in range(5))
-    r = (mr @ params["w_r"]).reshape(B, S, H, hd).float()
-    k = (mk @ params["w_k"]).reshape(B, S, H, hd).float()
-    v = (mv @ params["w_v"]).reshape(B, S, H, hd).float()
-    g = F.silu(mg @ params["w_g"])
+    r = project(mr, params["w_r"]).reshape(B, S, H, hd).float()
+    k = project(mk, params["w_k"]).reshape(B, S, H, hd).float()
+    v = project(mv, params["w_v"]).reshape(B, S, H, hd).float()
+    g = F.silu(project(mg, params["w_g"]))
     logw = _decay(params, mw).reshape(B, S, H, hd)
     u = params["u_bonus"].reshape(H, hd)
     s0 = state["state"] if state is not None else None
     y, s_final = _wkv_on_shards(r, k, v, logw, u, s0, cfg.ssm.chunk_size, use_pallas(cfg, x))
     y = _group_norm(y, params["ln_x"].float(), H)
-    out = (y.to(x.dtype) * g) @ params["w_o"]
+    out = project(y.to(x.dtype) * g, params["w_o"])
     return out, {"state": s_final, "tm_x": x[:, -1]}
 
 
@@ -230,15 +230,34 @@ def _channel_products(mr, mk, wr, wk, wv) -> torch.Tensor:
     return r * (torch.square(torch.relu(mk @ wk)) @ wv)
 
 
+def _channel_products_split(mr, mk, wr, wk, wv) -> torch.Tensor:
+    """``_channel_products`` on DTensors whose tokens do not divide `model`
+    (a decode step): the weights are whole over `model`, so each product
+    splits its columns there, or its contraction where its input comes
+    split (``sharding.linear``): r and the key path by their columns, the
+    value product by its d_ff rows, a pending sum.  Where the rows are
+    whole over `data` both factors are placed as the residual stream
+    (``sharding.constrain_stream``); else the pending sum is
+    reduce-scattered onto r's columns."""
+    r = torch.sigmoid(shd.linear(mr, wr))
+    kv = shd.linear(torch.square(torch.relu(shd.linear(mk, wk))), wv)
+    if shd.rows_whole(mr):
+        return shd.constrain_stream(r) * shd.constrain_stream(kv)
+    return r * kv.redistribute(kv.device_mesh, r.placements)
+
+
 def channel_mix(params: Params, x: torch.Tensor,
                 state: Optional[Dict[str, torch.Tensor]] = None):
     B, S, D = x.shape
-    prev = shd.constrain_rows(state["cm_x"]) if state is not None else x.new_zeros((B, D))
+    prev = shd.constrain_stream(state["cm_x"]) if state is not None else x.new_zeros((B, D))
     xs = _token_shift(x, prev)
     mu = params["mix_ch"].to(x.dtype)
     mr, mk = (x + mu[i] * (xs - x) for i in range(2))
-    c = shd.on_tokens(_channel_products, (mr, mk),
-                   tuple(params[key] for key in ("wr_ch", "wk_ch", "wv_ch")))
+    weights = tuple(params[key] for key in ("wr_ch", "wk_ch", "wv_ch"))
+    if shd.tokens_divide(mr):
+        c = shd.on_tokens(_channel_products, (mr, mk), weights)
+    else:
+        c = _channel_products_split(mr, mk, *weights)
     return c, {"cm_x": x[:, -1]}
 
 
@@ -246,10 +265,10 @@ def _block(bp: Params, x: torch.Tensor, cfg: ModelConfig, state=None):
     tm_state = ({"state": state["state"], "tm_x": state["tm_x"]}
                 if state is not None else None)
     a, tm_new = time_mix(bp["rwkv"], rms_norm(x, bp["ln1"]["w"], cfg.norm_eps), cfg, tm_state)
-    x = x + shd.constrain_rows(a)
+    x = x + shd.constrain_stream(a)
     cm_state = {"cm_x": state["cm_x"]} if state is not None else None
     c, cm_new = channel_mix(bp["cmix"], rms_norm(x, bp["ln2"]["w"], cfg.norm_eps), cm_state)
-    return x + shd.constrain_rows(c), {**tm_new, **cm_new}
+    return x + shd.constrain_stream(c), {**tm_new, **cm_new}
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +281,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     None).  A Python loop over the stacked layers (``lax.scan`` in JAX),
     each under ``torch.utils.checkpoint`` with ``cfg.remat`` while
     gradients are recorded."""
-    x = shd.constrain_rows(lookup(params["embed"]["w"], tokens))
+    x = shd.constrain_stream(lookup(params["embed"]["w"], tokens))
     if state is None:
         B = tokens.shape[0]
         H, hd = head_dims(cfg)
@@ -307,7 +326,7 @@ def decode_step(params: Params, token: torch.Tensor, cache, cache_index, cfg: Mo
     """token: (B, 1).  The recurrent state is O(1) in sequence length:
     ``cache_index`` is unused (kept for API uniformity)."""
     x, new_state = forward(params, token, cfg, want_state=True, state=cache)
-    logits = x[:, -1:] @ params["lm_head"]["w"]
+    logits = project(x[:, -1:], params["lm_head"]["w"])
     return logits, new_state
 
 

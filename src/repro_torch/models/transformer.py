@@ -39,9 +39,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (Params, _device_of, chunked_softmax_xent, dense_init,
-                                       embed_init, init_mlp, mlp, rms_norm, torch_dtype)
-from repro_torch.parallel.sharding import (constrain_rows, constrain_seq, lookup, row_placements,
-                                           seq_axes, seq_placements, stacked_empty)
+                                       embed_init, init_mlp, mlp, project, rms_norm, torch_dtype)
+from repro_torch.parallel.sharding import (constrain_rows, constrain_seq, constrain_stream, lookup,
+                                           row_placements, seq_axes, seq_placements,
+                                           stacked_empty)
 from repro_torch.utils.tree import tree_map
 
 
@@ -267,10 +268,10 @@ def _block_decode(bp: Params, x: torch.Tensor, cache, cache_index: int, cfg: Mod
                   use_moe: bool):
     attend = attn_lib.mla_decode if cfg.attention == "mla" else attn_lib.gqa_decode
     a, _ = attend(bp["attn"], rms_norm(x, bp["ln1"]["w"], cfg.norm_eps), cache, cache_index, cfg)
-    x = x + constrain_rows(a)
+    x = x + constrain_stream(a)
     h = rms_norm(x, bp["ln2"]["w"], cfg.norm_eps)
     m = moe_lib.moe_block(bp["moe"], h, cfg)[0] if use_moe else mlp(bp["mlp"], h)
-    return x + constrain_rows(m)
+    return x + constrain_stream(m)
 
 
 def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any], cache_index,
@@ -279,13 +280,17 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any], cach
     VLM's prefix counts).
 
     Returns (logits (B, 1, V), cache).  Each layer's slice of the stacked
-    cache is written in place, so the returned cache is the one passed in."""
+    cache is written in place, so the returned cache is the one passed in.
+    On DTensors the residual stream is held by ``constrain_stream``: in
+    rows, or, where the batch is whole over `data` (long-context decode),
+    split on d_model over it, every product split over `data` too
+    (``layers.project``)."""
     cache_index = int(cache_index)
-    x = constrain_rows(lookup(params["embed"]["w"], token))
+    x = constrain_stream(lookup(params["embed"]["w"], token))
     for name, n_layers, use_moe in _stacks(cfg):
         for i in range(n_layers):
             lp = tree_map(lambda p: p[i], params[name])
             lc = {key: val[i] for key, val in cache[name].items()}
             x = _block_decode(lp, x, lc, cache_index, cfg, use_moe)
     x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
-    return x @ lm_head_weight(params, cfg), cache
+    return project(x, lm_head_weight(params, cfg)), cache

@@ -216,6 +216,24 @@ def cache_spec(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, Any]:
     return {"k": (kv, dtype), "v": (kv, dtype), "xk": (xkv, dtype), "xv": (xkv, dtype)}
 
 
+def _cross_decode(q, xk, xv):
+    """One token's cross-attention over every encoder frame: q (B, H, 1,
+    hd), xk / xv (B, KV, Se, hd).  On DTensors each rank attends with its
+    shards as the training attention does (``attention._on_shards``): the
+    (row, kv head) pairs split over the rows' axes and `model` where the kv
+    heads do not divide `model` (8 heads on 16 ranks).  DTensor's own
+    strategies for its batched products run every head on every `model`
+    rank, the cache being whole over `model` (``cache_pspec``)."""
+    from torch.distributed.tensor import DTensor
+
+    def attend(q, k, v):
+        return decode_attention(q, k, v, torch.ones((q.shape[0], k.shape[2]), dtype=torch.bool,
+                                                    device=q.device))
+    if isinstance(q, DTensor):
+        return attn_lib._on_shards(q, xk, xv, attend)
+    return attend(q, xk, xv)
+
+
 def decode_step(params: Params, token: torch.Tensor, cache, cache_index, cfg: ModelConfig):
     """token: (B, 1); cache: the stacked ``{k, v, xk, xv}`` of ``prefill`` (or
     ``cache_spec``).  Each layer's ``k``, ``v`` slot is written in place; the
@@ -231,8 +249,7 @@ def decode_step(params: Params, token: torch.Tensor, cache, cache_index, cfg: Mo
         B = hq.shape[0]
         xk, xv = cache["xk"][i], cache["xv"][i]
         q = _mm(hq, bp["xattn"]["wq"]).reshape(B, 1, H, hd).transpose(1, 2)
-        valid = torch.ones((B, xk.shape[1]), dtype=torch.bool, device=x.device)
-        a = decode_attention(q, xk.transpose(1, 2), xv.transpose(1, 2), valid)
+        a = _cross_decode(q, xk.transpose(1, 2), xv.transpose(1, 2))
         x = x + _mm(a.transpose(1, 2).reshape(B, 1, H * hd), bp["xattn"]["wo"])
         x = x + _mlp(bp["mlp"], rms_norm(x, bp["ln2"]["w"], cfg.norm_eps))
     x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)

@@ -249,6 +249,57 @@ class _GradLikeInput(torch.autograd.Function):
         return g.new_empty_strided(*ctx.layout).copy_(g)
 
 
+class AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` over ``group`` along dim 0 (``recv`` / ``send``:
+    rows from / to each rank), its backward the reverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, recv, send, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        ctx.args = (send, recv, group)
+        return funcol.wait_tensor(funcol.all_to_all_single(x, recv, send, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+
+        send, recv, group = ctx.args
+        return (funcol.wait_tensor(funcol.all_to_all_single(g.contiguous(), send, recv, group)),
+                None, None, None)
+
+
+def rows_to_columns(y, mesh, axis: str):
+    """Inside ``on_shards``: ``y`` (R, ..., N/k), every rank's product for
+    all R rows (gathered over ``axis``, k ranks) and its own N/k columns,
+    exchanged over ``axis`` (one all-to-all) into this rank's R/k rows and
+    every column: (R/k, ..., N), columns in rank order."""
+    k, group = mesh.size(mesh.mesh_dim_names.index(axis)), mesh.get_group(axis)
+    n = y.shape[0] // k
+    got = AllToAll.apply(y.contiguous(), [n] * k, [n] * k, group)      # k blocks of n rows
+    got = got.reshape(k, n, *y.shape[1:]).movedim(0, -2)                 # (n, ..., k, N/k)
+    return got.reshape(*got.shape[:-2], -1)
+
+
+def rows_gathered(x, w) -> bool:
+    """Whether a product of ``x`` (its rows, dim 0, split over `data`)
+    with a weight ``w`` whose output columns the specs split over `data`
+    (an fsdp ``(.., "data")`` leaf) moves less by gathering the rows than
+    the weight: a decode step's few rows, not a training batch's.  Then
+    each rank multiplies every row by its own columns and one all-to-all
+    returns its rows (``rows_to_columns``), where XLA's compiled decode
+    also gathers the activations and leaves the weight split."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor) or "data" not in x.device_mesh.mesh_dim_names:
+        return False
+    names = x.device_mesh.mesh_dim_names
+    i, cols = names.index("data"), w.dim() - 1
+    others = all(not pw.is_shard(cols) for n, pw in zip(names, w.placements) if n != "data")
+    return (x.placements[i].is_shard(0) and w.placements[i].is_shard(cols) and others
+            and x.numel() < w.numel())
+
+
 def on_shards(fn, mesh, in_placements, out_placements):
     """``fn`` run by each rank on its local shards of its DTensor arguments,
     redistributed first to ``in_placements`` (``local_map``; ``None`` for an
@@ -277,26 +328,133 @@ def on_shards(fn, mesh, in_placements, out_placements):
                      in_grad_placements=grads, device_mesh=mesh, redistribute_inputs=True)
 
 
+def tokens_divide(x) -> bool:
+    """Whether ``on_tokens`` can split the S tokens of the (B, S, ...)
+    activation ``x`` over `model` (S a multiple of its ways; always on
+    plain tensors).  Where it cannot (a decode step: S = 1), the products
+    of weights whole over `model` go through ``linear``, which splits their
+    columns."""
+    from torch.distributed.tensor import DTensor
+
+    return not isinstance(x, DTensor) or x.shape[1] % mesh_axis_size(x.device_mesh, "model") == 0
+
+
 def on_tokens(fn, acts, weights):
     """``fn(*acts, *weights)``, token-wise in the (B, S, ...) activations
-    ``acts``.  On DTensors each rank takes its batch rows and, where S
-    divides `model`, its S / `model` tokens, with the weights whole
-    (``on_shards``: an fsdp split gathered first, the gradient a pending
-    sum over the axes that split the tokens); the output is placed as the
-    activations.  For products whose weights the rules leave whole over
-    `model` (RWKV's channel mix and decay LoRA, MLA's latent and rope-key
-    projections): without the split every `model` rank would run every
-    token's products.  Plain tensors: ``fn`` as it is."""
+    ``acts``, whose S divides `model` (``tokens_divide``).  On DTensors each
+    rank takes its batch rows and its S / `model` tokens, with the weights
+    whole (``on_shards``: an fsdp split gathered first, the gradient a
+    pending sum over the axes that split the tokens); the output is placed
+    as the activations.  For products whose weights the rules leave whole
+    over `model` (RWKV's channel mix and decay LoRA, MLA's latent and
+    rope-key projections): without the split every `model` rank would run
+    every token's products.  Plain tensors: ``fn`` as it is."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     if not isinstance(acts[0], DTensor):
         return fn(*acts, *weights)
-    mesh, (B, S) = acts[0].device_mesh, acts[0].shape[:2]
-    split = S % mesh_axis_size(mesh, "model") == 0
-    tok = with_model(mesh, row_placements(mesh, B), Shard(1) if split else Replicate())
+    if not tokens_divide(acts[0]):
+        raise ValueError(f"{acts[0].shape[1]} tokens do not split over `model`: use linear")
+    mesh, B = acts[0].device_mesh, acts[0].shape[0]
+    tok = with_model(mesh, row_placements(mesh, B), Shard(1))
     whole = [Replicate()] * mesh.ndim
     return on_shards(fn, mesh, (*(tok for _ in acts), *(whole for _ in weights)),
                      tok)(*acts, *weights)
+
+
+def token_product(x, w):
+    """``x @ w`` for a weight the specs leave whole over `model`: split by
+    tokens (``on_tokens``) where they divide `model`, else by the weight's
+    columns (``linear``), each `model` rank its slice of the output."""
+    if tokens_divide(x):
+        return on_tokens(torch.matmul, (x,), (w,))
+    return linear(x, w)
+
+
+def rows_whole(x) -> bool:
+    """Whether the DTensor ``x`` (dim 0 its batch rows) holds its rows whole
+    over `data`: a batch smaller than the data ways (long-context decode, a
+    batch of one), which ``batch_shardable`` leaves replicated.  Then every
+    `data` rank would run the whole step; ``linear`` splits the products
+    over `data` instead, and the residual stream lies split on d_model over
+    it (``constrain_stream``).  False on plain tensors and on a mesh with no
+    `data` axis."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor) or "data" not in x.device_mesh.mesh_dim_names:
+        return False
+    return "data" not in (batch_shardable(x.device_mesh, x.shape[0]) or ())
+
+
+def constrain_stream(x):
+    """``x``, the residual stream (B, [S,] D) between the products, and its
+    gradient placed by ``constrain_rows`` where the batch splits over
+    `data`.  Where it does not (``rows_whole``), d_model is split over
+    `data` instead, the layout the reference's compiled long-context step
+    keeps (its products then contract each rank's slice of d_model, or
+    write it): every axis but `data` is placed first (a pending sum over
+    `model` reduced on each rank's d_model slice, a split gathered), then
+    `data` (a pending sum reduce-scattered, a whole tensor sliced, which
+    moves nothing).  Plain tensors pass through."""
+    from torch.distributed.tensor import Shard
+
+    if not rows_whole(x):
+        return constrain_rows(x)
+    mesh = x.device_mesh
+    want = [Shard(x.dim() - 1) if n == "data" else p
+            for n, p in zip(mesh.mesh_dim_names, row_placements(mesh, x.shape[0]))]
+    first = [p if n == "data" else w for n, p, w in zip(mesh.mesh_dim_names, x.placements, want)]
+    if first != list(x.placements):
+        x = _Constrain.apply(x, tuple(first), None)
+    return x if want == list(x.placements) else _Constrain.apply(x, tuple(want), None)
+
+
+def linear(x, w):
+    """``x @ w`` of an activation (..., K) and a weight (K, N), each rank on
+    its shards by a fixed rule (``on_shards``), where DTensor's own matmul
+    strategy would choose by a cost model that differs by torch release.
+    For each mesh axis, by ``x``'s placement on it and then ``w``'s:
+
+    - ``x`` split on a leading dim (batch rows, tokens): that split kept,
+      the weight whole over the axis (an fsdp split gathered: FSDP);
+    - ``x`` split on K (the residual stream over `data`, ``rows_whole``),
+      or whole with the weight's rows split: each rank contracts its slice
+      of K against its rows of the weight (a whole weight is sliced, which
+      moves nothing), and the output is a pending sum;
+    - otherwise each rank takes its slice of the weight's columns: its own
+      shard, or, over `data` and `model`, a slice of a weight whole over
+      the axis (where a whole weight met a whole activation, every rank
+      would repeat the product); over `pod` both stay whole (the pods are
+      replicas of a batch their axis does not split).
+
+    A pending sum over any axis but `model` is all-reduced here (the
+    output feeds a nonlinearity or an attention); over `model` it is left
+    to the layer's constraint, as ``x @ w`` leaves it.  Plain tensors:
+    ``x @ w``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x @ w
+    mesh, last = x.device_mesh, x.dim() - 1
+    xin, win, out = [], [], []
+    for name, px, pw in zip(mesh.mesh_dim_names, x.placements, w.placements):
+        if px.is_partial():
+            raise ValueError(f"linear takes no pending sum: {x.placements}")
+        if px.is_shard() and px.dim < last:
+            xin.append(px), win.append(Replicate()), out.append(px)
+        elif px.is_shard() or pw.is_shard(0):
+            if pw.is_shard(1):
+                raise ValueError(f"linear: K split over an axis that splits the weight's columns "
+                                 f"({x.placements}, {w.placements})")
+            xin.append(Shard(last)), win.append(Shard(0)), out.append(Partial())
+        elif pw.is_shard(1) or name in ("data", "model"):
+            xin.append(px), win.append(Shard(1)), out.append(Shard(last))
+        else:                                   # `pod` at long-context decode: the replicas
+            xin.append(px), win.append(pw), out.append(px)
+    y = on_shards(torch.matmul, mesh, (xin, win), out)(x, w)
+    reduced = [Replicate() if p.is_partial() and n != "model" else p
+               for n, p in zip(mesh.mesh_dim_names, y.placements)]
+    return y if reduced == list(y.placements) else y.redistribute(mesh, reduced)
 
 
 def with_model(mesh, placements, p) -> List[Any]:
@@ -511,7 +669,12 @@ def lookup(table, tokens):
     slice of the embedding dim; the table's gradient is then a partial sum
     over the axes the tokens split.  DTensor's own rules for ``index`` and
     its backward ``index_put`` cannot take a batch split over two mesh axes
-    (``("pod", "data")``) in every torch release."""
+    (``("pod", "data")``) in every torch release.
+
+    Where the specs split the table's rows (``fsdp_tp``: over `data`) and
+    the step's tokens are fewer than its rows (a decode step), the table
+    stays split (``_vocab_parallel``): gathering it would move more than
+    the whole batch's tokens and rows."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     if not isinstance(table, DTensor):
@@ -520,10 +683,40 @@ def lookup(table, tokens):
     tok = list(tokens.placements)
     if any(p.is_shard() for n, p in zip(mesh.mesh_dim_names, tok) if n == "model"):
         raise ValueError("lookup takes tokens replicated over `model`")
+    if tokens.numel() < table.shape[0] and any(
+            p.is_shard(0) for n, p in zip(mesh.mesh_dim_names, table.placements) if n != "model"):
+        return _vocab_parallel(table, tokens)
     tab = with_model(mesh, [Replicate()] * mesh.ndim, Shard(1))
     fn = on_shards(lambda t, i: t[i.long()], mesh, (tab, tok),
                    with_model(mesh, tok, Shard(tokens.dim())))
     return fn(table, tokens)
+
+
+def _vocab_parallel(table, tokens):
+    """``lookup`` on the table's own row shards: the tokens gathered over
+    the axes that split the table's rows, each rank looks up those in its
+    rows (zeros for the others), and the pending sum is reduced onto the
+    tokens' own placement (a reduce-scatter where they were split, an
+    all-reduce where they were whole)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, names = table.device_mesh, table.device_mesh.mesh_dim_names
+    split = [n != "model" and p.is_shard(0) for n, p in zip(names, table.placements)]
+    tab = [Shard(0) if s else Replicate() for s in split]
+    tab = with_model(mesh, tab, Shard(1))
+    tok = [Replicate() if s else p for s, p in zip(split, tokens.placements)]
+    shape, lo = compute_local_shape_and_global_offset(table.shape, mesh, tab)
+
+    def local(t, i):
+        i = i.long() - lo[0]
+        inside = (i >= 0) & (i < shape[0])
+        return t[i.clamp(0, shape[0] - 1)] * inside[..., None].to(t.dtype)
+
+    out = [Partial() if s else p for s, p in zip(split, tok)]
+    got = on_shards(local, mesh, (tab, tok), with_model(mesh, out, Shard(tokens.dim())))(
+        table, tokens)
+    return got.redistribute(mesh, with_model(mesh, list(tokens.placements), Shard(tokens.dim())))
 
 
 def write_at(buf, dim: int, index: int, value) -> None:

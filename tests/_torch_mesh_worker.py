@@ -9,7 +9,8 @@ test), places them by the specs' DTensor placements, reads them back with
 on the mesh, and the same step of one smoke model of each other family
 (``FAMILY_ARCHS``) on the (2, 2) mesh, and the gradients of a dense and an
 MoE decoder under ``seq_parallel="data"`` (``grads_on``), one decode step
-of the dense and the MLA decoder (``decode_on``), and the gradients of the
+of the dense and the MLA decoder (``decode_on``) and of each of
+``DECODE_CASES`` (``decode_case_on``), and the gradients of the
 attention on a (1, 4) mesh whose `model` axis the kv heads do not divide
 (``HEAD_SPLITS``).  It writes what it
 saw to
@@ -136,6 +137,59 @@ def decode_inputs(arch: str = ARCH):
     return api, params, token, cache
 
 
+# decode steps of every lowering a decode takes on a mesh: (arch, batch).
+# A batch of one is whole over `data`: the residual stream splits on d_model
+# over it and every product splits over `data` (``layers.project``), fsdp
+# weights on their own shards; a batch of two gives each `data` rank one
+# row, one token, fewer than the `model` ranks: RWKV's channel mix and decay
+# LoRA split their columns (``sharding.linear``), the fsdp decoders gather
+# the rows for their output-split weights (``sharding.rows_gathered``) and
+# look their tokens up in the table's own rows; Whisper's cross-attention
+# splits its (row, head) pairs
+DECODE_CASES = {"fsdp-decoder-batch-1": ("command-r-35b", 1),
+                "dp-decoder-batch-1": ("stablelm-3b", 1),
+                "rwkv-fewer-tokens-than-model-ranks": ("rwkv6-1.6b", 2),
+                "rwkv-batch-1": ("rwkv6-1.6b", 1),
+                "moe-batch-1": ("moonshot-v1-16b-a3b", 1),
+                "mla-moe-batch-1": ("deepseek-v2-236b", 1),
+                "hybrid-batch-1": ("jamba-v0.1-52b", 1),
+                "fsdp-decoder-a-row-a-rank": ("command-r-35b", 2),
+                "mla-moe-a-row-a-rank": ("deepseek-v2-236b", 2),
+                "whisper-a-row-a-rank": ("whisper-base", 2)}
+
+
+def decode_case_inputs(arch: str, batch: int):
+    """(api, params, token, cache) of one decode step of the smoke model:
+    ``batch`` rows against a cache (``api.cache_spec``, ``DECODE_W``
+    slots) of random values, the new token at index ``DECODE_AT``."""
+    from repro_torch.launch import specs
+    from repro_torch.utils.tree import tree_map
+
+    api, params, _ = inputs(arch)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    cache = tree_map(lambda t: torch.randn(t.shape, generator=gen, dtype=t.dtype),
+                           specs.cache_structs(api, batch, DECODE_W))
+    token = torch.randint(0, api.cfg.vocab_size, (batch, 1), generator=gen, dtype=torch.int32)
+    return api, params, token, cache
+
+
+def decode_case_on(mesh, arch: str, batch: int) -> dict:
+    """One ``make_step_fn(api, "decode")`` step of ``decode_case_inputs``
+    on ``mesh``, placed by the specs: its logits and returned cache, whole."""
+    from repro_torch.launch import specs
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.utils.tree import tree_leaves
+
+    api, params, token, cache = decode_case_inputs(arch, batch)
+    placed = specs.distribute(params, shd.param_specs(params, api.cfg), mesh)
+    dcache = specs.distribute(cache, specs.cache_shardings(api.cfg, mesh, batch, cache), mesh)
+    _, bspecs = specs.decode_batch_specs(api.cfg, type("S", (), {"global_batch": batch})(), mesh)
+    dtoken = specs.distribute({"tokens": token}, bspecs, mesh)
+    logits, new_cache = specs.make_step_fn(api, "decode")(placed, dtoken, dcache, DECODE_AT)
+    return {"logits": logits.full_tensor(),
+            "cache": [t.full_tensor() for t in tree_leaves(new_cache)]}
+
+
 def decode_on(mesh, arch: str = ARCH) -> dict:
     """One ``make_step_fn(api, "decode")`` step on ``mesh``: batch 1 cannot
     split over `data`, so the cache's slots do (``cache_pspec``), and the new
@@ -202,6 +256,8 @@ def on_mesh(out_dir: str) -> None:
         mesh = make_mesh((2, 2), ("data", "model"), "cpu")
         out["decode"] = decode_on(mesh)
         out["decode_mla"] = decode_on(mesh, MLA_ARCH)
+        out["decode_cases"] = {name: decode_case_on(mesh, *case)
+                               for name, case in DECODE_CASES.items()}
         # the kernel's route with the heads split over `model` too
         out["kernel_route_2x2"] = train_on(mesh, use_pallas="always")["loss"]
         out["families"] = {arch: train_on(mesh, arch) for arch in FAMILY_ARCHS}

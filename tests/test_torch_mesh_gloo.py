@@ -25,7 +25,14 @@ starts its ranks).
 - A decode step of batch 1, the cache's slots split over the mesh: the
   dense decoder's (GQA, slots over `data`) and the MLA decoder's (latent
   cache, slots over `data` and `model`: each rank's partial softmax merged
-  across both, flash-decoding) give one process's logits and cache."""
+  across both, flash-decoding) give one process's logits and cache.
+- A decode step of each lowering a decode takes on a mesh
+  (``DECODE_CASES``): a batch of one, whole over `data` (the products
+  split over `data` on the weights' own shards), under ``fsdp_tp`` and
+  ``dp_tp``, in each family; a row and a token a `data` rank, fewer
+  tokens than `model` ranks (RWKV's column-split products; the fsdp
+  decoders' gathered rows and vocab-parallel lookup; Whisper's
+  cross-attention on (row, head) pairs): one process's logits and cache."""
 import os
 import signal
 import subprocess
@@ -34,8 +41,9 @@ from pathlib import Path
 
 import pytest
 import torch
-from _torch_mesh_worker import (DECODE_AT, FAMILY_ARCHS, FAMILY_S, HEAD_SPLITS, MLA_ARCH,
-                                SEQ_PARALLEL_ARCHS, decode_inputs, inputs)
+from _torch_mesh_worker import (DECODE_AT, DECODE_CASES, FAMILY_ARCHS, FAMILY_S, HEAD_SPLITS,
+                                MLA_ARCH, SEQ_PARALLEL_ARCHS, decode_case_inputs, decode_inputs,
+                                inputs)
 
 from repro_torch.launch import specs
 from repro_torch.optim.optimizers import get_optimizer
@@ -223,3 +231,18 @@ def test_an_mla_decode_step_merges_the_slots_split_over_both_axes(ranks):
             torch.testing.assert_close(got[:, :, DECODE_AT], want[:, :, DECODE_AT],
                                        rtol=1e-5, atol=1e-5)
             assert not torch.equal(got[:, :, DECODE_AT], old[:, :, DECODE_AT])
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_each_decode_lowering_gives_the_single_process_step(ranks, case):
+    """One decode step of ``DECODE_CASES[case]`` on the (2, 2) mesh: the
+    logits and every leaf of the returned cache equal a single-process
+    decode's within 1e-5 (the split products sum in another order)."""
+    api, params, token, cache = decode_case_inputs(*DECODE_CASES[case])
+    logits, new_cache = specs.make_step_fn(api, "decode")(params, {"tokens": token}, cache,
+                                                          DECODE_AT)
+    for r in ranks:
+        got = r["decode_cases"][case]
+        torch.testing.assert_close(got["logits"], logits, rtol=1e-5, atol=1e-5)
+        for path, a, b in zip(tree_paths(new_cache), got["cache"], tree_leaves(new_cache)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=path)

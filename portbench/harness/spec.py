@@ -1,0 +1,99 @@
+"""A cell of ``BENCHMARK.json``, found by name, with everything that belongs
+to it in files of their own:
+
+- ``portbench/configs/<config>.json``: the model (``counts.arch``);
+- ``portbench/traffic/<mix>.json``: the traffic and the training recipe;
+- ``portbench/cells/<workload>.json``: ``world`` (data-parallel ranks, one
+  a card; 1 if absent), the steps the reference follows, the traced steps
+  and the limits of the comparison;
+- ``portbench/metrics/<metric>.py``: a reader for each metric.
+
+Adding a configuration, a mix, a cell or a metric adds files and entries;
+no code here names one.
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, List
+
+from portbench.counts import arch as arch_lib
+
+HERE = Path(__file__).resolve().parent.parent          # portbench/
+ROOT = HERE.parent                                     # the checkout
+
+
+@dataclass
+class Cell:
+    name: str
+    chips: int
+    config: str
+    arch: arch_lib.Arch
+    traffic: dict
+    cell: dict
+    end_to_end: List[dict]         # the metrics this cell reports with --trace 0
+    per_layer: List[dict]          # ... and with --trace 1
+
+    @property
+    def world(self) -> int:
+        return int(self.cell.get("world", 1))
+
+    @property
+    def tokens_per_step(self) -> int:
+        return self.traffic["batch"] * self.traffic["seq_len"]
+
+
+def _reports(metric: dict, workload: str) -> bool:
+    return "workloads" not in metric or workload in metric["workloads"]
+
+
+def load(workload: str, root: Path = ROOT) -> Cell:
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    entries = {w["name"]: w for w in bench["workloads"]}
+    if workload not in entries:
+        raise KeyError(f"no workload {workload!r} in BENCHMARK.json (have {sorted(entries)})")
+    w = entries[workload]
+    config = {c["name"]: c for c in bench["configs"]}[w["config"]]
+    here = root / "portbench"
+    return Cell(
+        name=workload, chips=int(w["chips"]), config=w["config"],
+        arch=arch_lib.load(root / config["file"], w["config"]),
+        traffic=json.loads((here / "traffic" / f"{w['traffic']}.json").read_text()),
+        cell=json.loads((here / "cells" / f"{workload}.json").read_text()),
+        end_to_end=[m for m in bench["end_to_end"] if _reports(m, workload)],
+        per_layer=[m for m in bench["per_layer"] if _reports(m, workload)])
+
+
+def reader(name: str, root: Path = ROOT):
+    """``read(ctx) -> float | None`` of ``portbench/metrics/<name>.py``."""
+    path = root / "portbench" / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name.replace('.', '_')}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
+
+
+def model_config(cell: Cell):
+    """The program's ``ModelConfig`` for the cell's configuration file."""
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+
+    a = cell.arch
+    moe = None
+    if a.moe is not None:
+        m = a.moe
+        moe = MoEConfig(num_experts=m.n_experts, top_k=m.top_k, num_shared_experts=m.n_shared,
+                        d_ff_expert=m.d_ff_expert, every=m.every, first_dense=m.first_dense,
+                        capacity_factor=m.capacity_factor, router_z_loss=m.router_z_loss,
+                        load_balance_loss=m.load_balance_loss)
+    return ModelConfig(
+        name=cell.config, family="moe" if moe else "dense", num_layers=a.n_layers,
+        d_model=a.d_model, num_heads=a.n_heads, num_kv_heads=a.n_kv_heads, d_ff=a.d_ff,
+        vocab_size=a.vocab, head_dim=a.head_dim, moe=moe, rope_theta=a.rope_theta,
+        norm_eps=a.norm_eps, tie_embeddings=a.tie_embeddings, logit_chunk=a.logit_chunk,
+        dtype=a.dtype, remat_policy=cell.traffic["remat_policy"], source=a.source)
+
+
+def limits(cell: Cell) -> Dict[str, float]:
+    return {k: float(v) for k, v in cell.cell["limits"].items()}

@@ -1,0 +1,125 @@
+"""The reference's training steps: the same weights and batches as the
+program's first steps, followed in float32 (TF32 off).
+
+A step is the loss and its gradient (``model.loss``), the gradient sync of
+one rank a batch shard (each rank's gradient through the codec, then their
+mean), clipping by the global norm, and AdamW with bias correction and
+decoupled weight decay on leaves of two dims or more.  The weights are held
+between steps in the configuration's dtype, as the configuration states the
+model (bfloat16): each update is computed in float32 and rounded to it.  The codec is the
+frozen bucket plan (``counts.buckets``) and the int8 round trip: a scale of
+max|x| / 127 a block of 256, codes rounded half to even and clipped to
++-127.  What it reads: each step's loss, each leaf's first gradient as
+AdamW gets it, each leaf's change over the steps.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from portbench.counts import buckets
+from portbench.counts.arch import Arch
+from portbench.harness.weights import sort_key
+from portbench.reference import model
+from portbench.reference.precision import PRODUCTS
+
+BLOCK = 256
+
+
+@dataclass
+class Readings:
+    paths: List[str]
+    losses: List[float]
+    grad_norms: List[float]        # each leaf's first gradient, as AdamW gets it
+    change_norms: List[float]      # each leaf's change over the steps followed
+
+
+def int8_round_trip(flat: torch.Tensor) -> torch.Tensor:
+    n = flat.numel()
+    rows = torch.nn.functional.pad(flat, (0, (-n) % buckets.PAD_UNIT)).reshape(-1, BLOCK)
+    amax = rows.abs().amax(dim=1, keepdim=True)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
+    q = torch.clamp(torch.round(rows / scale), -127, 127)
+    return (q * scale).reshape(-1)[:n]
+
+
+def sync(per_rank: Sequence[Sequence[torch.Tensor]], compression: str, itemsize: int,
+         fusion_mb: float) -> List[torch.Tensor]:
+    """The mean over ranks of each leaf, every rank's buckets through the codec."""
+    if compression not in ("int8", "none"):
+        raise ValueError(f"the reference has no codec {compression!r}")
+    first = per_rank[0]
+    sizes = [g.numel() for g in first]
+    out: List[torch.Tensor] = [None] * len(first)  # type: ignore[list-item]
+    for leaves in buckets.plan(sizes, itemsize, fusion_mb):
+        total = None
+        for grads in per_rank:
+            flat = torch.cat([grads[i].reshape(-1) for i in leaves])
+            if compression == "int8":
+                flat = int8_round_trip(flat)
+            total = flat if total is None else total + flat
+        total = total / len(per_rank)
+        off = 0
+        for i in leaves:
+            out[i] = total[off:off + sizes[i]].reshape(first[i].shape)
+            off += sizes[i]
+    return out
+
+
+def follow(a: Arch, weights: Dict[str, torch.Tensor], batches: Sequence[Dict[str, np.ndarray]],
+           traffic: dict, world: int = 1, precision: str = "float32",
+           half: bool = False) -> Readings:
+    """Follow ``len(batches)`` steps from ``weights`` (any dtype; held in
+    float32 here).  ``precision="fp8"`` is the control; ``half`` plants the
+    half-batch fault."""
+    mm = PRODUCTS[precision]
+    opt, comm = traffic["optimizer"], traffic["comm"]
+    b1, b2, eps, wd = opt["b1"], opt["b2"], opt["eps"], opt["weight_decay"]
+    lr, clip = traffic["lr"], traffic["clip_norm"]
+    stored = getattr(torch, a.dtype)
+    itemsize = torch.empty((), dtype=stored).element_size()
+    paths = sorted(weights, key=sort_key)
+    device = weights[paths[0]].device
+    p = [weights[k].to(torch.float32, copy=True).requires_grad_(True) for k in paths]
+    mu = [torch.zeros_like(t) for t in p]
+    nu = [torch.zeros_like(t) for t in p]
+    losses: List[float] = []
+    grad_norms: List[float] = []
+    for step, batch in enumerate(batches):
+        tokens = torch.as_tensor(batch["tokens"], device=device)
+        labels = torch.as_tensor(batch["labels"], device=device)
+        # a world that divides the batch splits its rows, else every rank
+        # trains on all of them and their identical gradients average to one
+        shards = world if tokens.shape[0] % world == 0 else 1
+        rows = tokens.shape[0] // shards
+        per_rank, loss_sum = [], 0.0
+        for r in range(shards):
+            sl = slice(r * rows, (r + 1) * rows)
+            value = model.loss(dict(zip(paths, p)), tokens[sl], labels[sl], a, mm, half)
+            per_rank.append(torch.autograd.grad(value, p))
+            loss_sum += float(value.detach())
+        losses.append(loss_sum / len(per_rank))
+        with torch.no_grad():
+            g = sync(per_rank, comm["compression"], itemsize, comm["fusion_buffer_mb"])
+            del per_rank
+            norm = torch.sqrt(sum(torch.sum(t * t) for t in g))
+            scale = torch.clamp(clip / torch.clamp(norm, min=1e-9), max=1.0)
+            g = [t * scale for t in g]
+            if step == 0:
+                grad_norms = [float(torch.linalg.vector_norm(t)) for t in g]
+            c = torch.tensor(float(step + 1))
+            bc1, bc2 = 1.0 - b1 ** c, 1.0 - b2 ** c
+            for w, gi, m, v in zip(p, g, mu, nu):
+                m.mul_(b1).add_(gi, alpha=1 - b1)
+                v.mul_(b2).add_(gi * gi, alpha=1 - b2)
+                upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+                if w.dim() >= 2:
+                    upd.add_(w, alpha=wd)
+                w.copy_((w - lr * upd).to(stored))
+            del g
+    with torch.no_grad():
+        change = [float(torch.linalg.vector_norm(w - weights[k].float())) for k, w in zip(paths, p)]
+    return Readings(paths, losses, grad_norms, change)

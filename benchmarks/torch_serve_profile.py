@@ -30,9 +30,9 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
 from repro_torch.launch.serve import prompt_batch  # noqa: E402
 from repro_torch.models.registry import get_model, pad_cache  # noqa: E402
+from repro_torch.utils import trace  # noqa: E402
 
 
 def _device_time(e) -> float:
@@ -85,12 +85,12 @@ def main() -> None:
 
     with torch.inference_mode():
         api.prefill(params, {**batch, "tokens": batch["tokens"][:, :256]})   # builds, warms up
-        build.reset_launch_counts()
+        trace.reset_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = sync()
             logits, cache = api.prefill(params, batch)
             t1 = sync()
-        counts = {**build.launch_counts, **build.route_counts}
+        counts = trace.counts("launch") + trace.counts("route")
         print(f"{cfg.name}, {cfg.num_layers} layers, batch {B}, prompt {P}; launches "
               f"{ {k: v for k, v in counts.items() if v} }")
         report("prefill (traced)", prof, (t1 - t0) * 1e3, args.top)

@@ -177,6 +177,7 @@ from repro_torch.optim.optimizers import get_optimizer  # noqa: E402
 from repro_torch.optim.schedule import get_schedule  # noqa: E402
 from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.parallel.grad_sync import make_plan, sync_grads, sync_grads_per_rank  # noqa: E402
+from repro_torch.utils import trace  # noqa: E402
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths, value_and_grad  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -606,9 +607,9 @@ def phase_wkv() -> dict:
     for B, H, S, hd, chunk, decay in cases:
         args = wkv_inputs(B, H, S, hd, seed=B * 100 + S + hd, decay=decay)
         want = wk.wkv_plain(*args, chunk=chunk)
-        build.reset_launch_counts()
+        trace.reset_counts()
         err = wkv_err(wk.wkv(*args), want)
-        chunked = build.route_counts["wkv_chunked"] == 1
+        chunked = trace.counts("route")["wkv_chunked"] == 1
         check(chunked == wk.chunked_route(S, hd), f"wkv took the wrong route at S={S} hd={hd}")
         line = f"  (B,H,S,hd)=({B},{H},{S},{hd}) {decay}: {'chunked' if chunked else 'step'} max abs err {err:.2e}"
         if chunked:
@@ -910,7 +911,7 @@ def phase_mamba_mixer(S: int = 4096) -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        build.reset_launch_counts()
+        trace.reset_counts()
         xg = x.clone().requires_grad_(True)
         w_in = params["w_in"].detach().clone().requires_grad_(True)
         out, state = mb.mamba_mixer({**params, "w_in": w_in}, xg, cfg.replace(use_pallas=mode))
@@ -918,7 +919,7 @@ def phase_mamba_mixer(S: int = 4096) -> None:
         torch.cuda.synchronize()
         peaks[mode] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
         results[mode] = (out.detach(), state["ssm"].detach(), gx, gw,
-                         build.launch_counts["ssm_scan"], build.route_counts["ssm_scan_fused"])
+                         trace.counts("launch")["ssm_scan"], trace.counts("route")["ssm_scan_fused"])
         del out, state, xg, w_in
     check(results["auto"][4:] == (1, 1) and results["never"][4:] == (0, 0),
           "expected one ssm_scan launch, on the fused route, on the kernel path and none on the plain one")
@@ -938,12 +939,12 @@ def phase_mamba_mixer(S: int = 4096) -> None:
     # bf16 inputs (the chunked one would carry a bf16 state)
     outs = {}
     for mode, extra in (("auto", {}), ("never", {"mamba_scan_impl": "seq"})):
-        build.reset_launch_counts()
+        trace.reset_counts()
         with torch.no_grad():
             outs[mode], _ = mb.mamba_mixer(params, x, cfg.replace(use_pallas=mode, bf16_stream=True,
                                                                    **extra))
         torch.cuda.synchronize()
-        outs[mode + " counts"] = (build.launch_counts["ssm_scan"], build.route_counts["ssm_scan_fused"])
+        outs[mode + " counts"] = (trace.counts("launch")["ssm_scan"], trace.counts("route")["ssm_scan_fused"])
     check(outs["auto counts"] == (1, 0) and outs["never counts"] == (0, 0),
           "bf16_stream: expected one launch of csrc/ssm_scan.cu and none of the fused route")
     rel = rel_l2(outs["auto"], outs["never"])
@@ -1076,10 +1077,10 @@ def phase_calibration(elements: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        build.reset_launch_counts()
+        trace.reset_counts()
         rc = kb.main(["--calibrate", "--elements", str(elements), "--out", f"{tmp}/big.json",
                       "--check", str(H100_TABLE)])
-        counts = dict(build.launch_counts)
+        counts = trace.counts("launch")
         print(f"  launches {counts}")
         check(rc == 0, f"the calibration at {elements} elements failed its gate (exit {rc})")
         for name in ("probe_copy_2d", "dequantize_int8_2d", "quantize_int8_2d", "ternarize_2d",
@@ -1120,9 +1121,9 @@ def phase_timeline(trained: dict = None) -> tuple:
     api = get_model(cfg)
     shape = InputShape("train_4k", INPUT_SHAPES["train_4k"].seq_len, 1, "train")
     batch = device_put_batch(SyntheticLM(cfg, shape, seed=0).batch(0), DEV)
-    build.reset_launch_counts()
+    trace.reset_counts()
     tl = timeline.measure(api, cfg, batch, repeats=2)
-    counts = dict(build.launch_counts)
+    counts = trace.counts("launch")
     ready = tl.ready_times
     step = (f" (the int8 trainer's median step, fwd+bwd+sync+AdamW: "
             f"{trained['result']['median_step_s']:.3f} s)" if trained else "")
@@ -1159,13 +1160,13 @@ def phase_grad_sync() -> None:
         world = InProcessWorld(K, node_size=2 if hier else None)
         plan, _ = make_plan(grads[0], comm.fusion_buffer_mb)
         check(plan.n_buckets == 2, f"expected 2 buckets, got {plan.n_buckets}")
-        build.reset_launch_counts()
+        trace.reset_counts()
         out = sync_grads_per_rank(grads, world, comm)
         torch.cuda.synchronize()
         err = max(float((out[r][key].double() - expect[key]).abs().max())
                   for r in range(K) for key in ("a", "b"))
         print(f"  {compression}/{'hier' if hier else 'flat'}: max abs err {err:.3e} "
-              f"(tolerance {tol[compression]}), launches {dict(build.launch_counts)}")
+              f"(tolerance {tol[compression]}), launches {dict(trace.counts('launch'))}")
         check(err <= tol[compression], f"grad sync {compression} out of tolerance")
         del out
 
@@ -1186,9 +1187,9 @@ def run_trainer_with(fn) -> tuple:
     from 0, and its peak device memory."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
+    trace.reset_counts()
     result = fn()
-    counts = {**build.launch_counts, **build.route_counts}
+    counts = trace.counts("launch") + trace.counts("route")
     torch.cuda.synchronize()
     result["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     return result, counts
@@ -1286,9 +1287,9 @@ def run_serve(argv: list) -> tuple:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2 ** 30
-    build.reset_launch_counts()
+    trace.reset_counts()
     result = serve.main(argv)
-    counts = {**build.launch_counts, **build.route_counts}
+    counts = trace.counts("launch") + trace.counts("route")
     torch.cuda.synchronize()
     result["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"  device memory held before the run {held:.2f} GiB, after it "
@@ -1413,10 +1414,10 @@ def phase_cnn_step() -> dict:
     for name in CNN_NAMES:
         gc.collect()
         torch.cuda.empty_cache()
-        build.reset_launch_counts()
+        trace.reset_counts()
         res = whatif.main(["--model", name, "--batch", str(CNN_BATCH), "--repeats", "5",
                            "--warmup", "2"])
-        check(all(c == 0 for c in build.launch_counts.values()),
+        check(all(c == 0 for c in trace.counts("launch").values()),
               "a fwd+bwd of a CNN launched a codec kernel")
         for key in ("t_batch_f32", "t_batch_tf32"):
             check(math.isfinite(res[key]) and res[key] > 0, f"{name}: {key} not a positive time")
@@ -1450,7 +1451,7 @@ def run_cnn_trainer(name: str, compression: str, steps: int = 2,
     batches = cnn_batches(steps)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
+    trace.reset_counts()
     losses, times = [], []
     for batch in batches:
         t0 = time.perf_counter()
@@ -1458,7 +1459,7 @@ def run_cnn_trainer(name: str, compression: str, steps: int = 2,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
-    counts = dict(build.launch_counts)
+    counts = trace.counts("launch")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     _, grads = value_and_grad(api.loss_fn, params, batches[-1])
     sync_ms = time_ms(lambda: sync_grads(grads, world, comm, use_kernels=use_pallas != "never"),
@@ -1953,7 +1954,7 @@ def spec_step_run(cfg, shape: InputShape, mesh, batches: list, steps: int) -> di
     del plain
     step = specs_lib.make_step_fn(api, "train", opt)
     losses, times = [], []
-    build.reset_launch_counts()
+    trace.reset_counts()
     for i in range(steps):
         batch = specs_lib.distribute(batches[i], spec.in_shardings[2], mesh)
         torch.cuda.synchronize()
@@ -1962,7 +1963,7 @@ def spec_step_run(cfg, shape: InputShape, mesh, batches: list, steps: int) -> di
         losses.append(float(metrics["loss"].full_tensor()))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    counts = {**build.launch_counts, **build.route_counts}
+    counts = trace.counts("launch") + trace.counts("route")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del params, state
     return {"losses": losses, "times": times, "counts": counts, "peak_gib": peak}
@@ -2452,15 +2453,15 @@ def phase_e2e_codecs(dryrun_recs: list) -> dict:
         shutil.rmtree(ckpt, ignore_errors=True)
     print("  examples/torch_gradient_compression.main on the card (stablelm-3b smoke, 10 steps "
           "each of none, fp16, int8, topk 0.25)")
-    build.reset_launch_counts()
+    trace.reset_counts()
     torch_gradient_compression.main(["--device", "cuda"])
-    check(build.launch_counts["quantize_int8_2d"] > 0 and build.launch_counts["topk_mask_2d"] > 0,
+    check(trace.counts("launch")["quantize_int8_2d"] > 0 and trace.counts("launch")["topk_mask_2d"] > 0,
           "the compression example missed its codec kernels")
     print("  examples/torch_serve_batch.main on the card (smoke: batch 2, prompt 32, 8 tokens)")
-    build.reset_launch_counts()
+    trace.reset_counts()
     served = torch_serve_batch.main(["--device", "cuda"])
-    print(f"  launches: {dict(build.launch_counts)}")
-    check(build.launch_counts["wkv"] > 0, "rwkv6 did not take the WKV kernel")
+    print(f"  launches: {dict(trace.counts('launch'))}")
+    check(trace.counts("launch")["wkv"] > 0, "rwkv6 did not take the WKV kernel")
     check(all(r["tokens"].shape == (2, 9) for r in served.values()), "a served batch is misshapen")
     results = Path(tempfile.mkdtemp(prefix="torch_run_")) / "torch_results.json"
     results.write_text(json.dumps(dryrun_recs))

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import List, Optional
 
 import torch
 
@@ -50,21 +50,6 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-
-# launches per kernel since the last reset; a wrapper adds one exactly where
-# it launches its kernel
-launch_counts: Dict[str, int] = {"quantize_int8_2d": 0, "ternarize_2d": 0,
-                                 "fused_add_2d": 0, "flash_attention": 0,
-                                 "topk_mask_2d": 0, "wkv": 0, "ssm_scan": 0,
-                                 "dequantize_int8_2d": 0, "probe_copy_2d": 0}
-# launches of a kernel's second route, counted in launch_counts as well
-route_counts: Dict[str, int] = {"wkv_chunked": 0, "ssm_scan_fused": 0}
-
-
-def reset_launch_counts() -> None:
-    for counts in (launch_counts, route_counts):
-        for name in counts:
-            counts[name] = 0
 
 
 def find_nvcc() -> str:

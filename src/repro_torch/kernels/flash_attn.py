@@ -27,6 +27,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.utils import trace
 
 NEG_INF = -1e30
 TILE = 64            # Sq and Skv must be multiples of this for the CUDA kernels
@@ -102,5 +103,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    BH, Sq, Skv, hd, n_heads, n_kv_heads, int(causal),
                                    1.0 / math.sqrt(hd), build.current_stream(q.device))
     build.check(code, entry)
-    build.launch_counts["flash_attention"] += 1
+    trace.count("launch.flash_attention")
     return out

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.utils import trace
 
 MAX_K = 64
 
@@ -41,5 +42,5 @@ def fused_add_2d(buffers: torch.Tensor) -> torch.Tensor:
         code = getattr(lib, entry)(buffers.data_ptr(), out.data_ptr(), K, n,
                                    build.current_stream(buffers.device))
     build.check(code, entry)
-    build.launch_counts["fused_add_2d"] += 1
+    trace.count("launch.fused_add_2d")
     return out

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.utils import trace
 from repro_torch.kernels.quantize import _check_aligned, _check_rows
 
 
@@ -33,5 +34,5 @@ def probe_copy_2d(x: torch.Tensor) -> torch.Tensor:
         code = lib.repro_probe_copy(x.data_ptr(), out.data_ptr(), x.shape[0],
                                     build.current_stream(x.device))
     build.check(code, "repro_probe_copy")
-    build.launch_counts["probe_copy_2d"] += 1
+    trace.count("launch.probe_copy_2d")
     return out

@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.utils import trace
 
 BLOCK = 256          # quantization block = one row
 
@@ -65,7 +66,7 @@ def _launch_rows(entry: str, counter: str, x: torch.Tensor):
         code = getattr(lib, entry)(x.data_ptr(), q.data_ptr(), s.data_ptr(), rows,
                                    build.current_stream(x.device))
     build.check(code, entry)
-    build.launch_counts[counter] += 1
+    trace.count("launch." + counter)
     return q, s
 
 
@@ -116,5 +117,5 @@ def dequantize_int8_2d(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         code = lib.repro_dequantize_int8(q.data_ptr(), s.data_ptr(), out.data_ptr(), q.shape[0],
                                          build.current_stream(q.device))
     build.check(code, "repro_dequantize_int8")
-    build.launch_counts["dequantize_int8_2d"] += 1
+    trace.count("launch.dequantize_int8_2d")
     return out

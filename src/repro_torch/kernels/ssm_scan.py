@@ -33,6 +33,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.utils import trace
 
 MAX_STATE = 32
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -100,7 +101,7 @@ def ssm_scan(decay, bx, c_t, h0, chunk: int = 128) -> Tuple[torch.Tensor, torch.
                                   B, S, n, di, *decay.stride(), *h0.stride(), *h_out.stride(),
                                   build.current_stream(decay.device))
     build.check(code, "repro_ssm_scan")
-    build.launch_counts["ssm_scan"] += 1
+    trace.count("launch.ssm_scan")
     return y, h_out
 
 
@@ -167,6 +168,6 @@ def ssm_scan_fused(dt, x, b_t, c_t, a, h0) -> Tuple[torch.Tensor, torch.Tensor]:
                                         h.data_ptr(), int(x.dtype == torch.bfloat16), B, S, n, di,
                                         *h0.stride(), build.current_stream(dt.device))
     build.check(code, "repro_ssm_scan_fused")
-    build.launch_counts["ssm_scan"] += 1
-    build.route_counts["ssm_scan_fused"] += 1
+    trace.count("launch.ssm_scan")
+    trace.count("route.ssm_scan_fused")
     return y, h

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.utils import trace
 
 
 def topk_mask_2d_plain(x: torch.Tensor, threshold) -> torch.Tensor:
@@ -45,5 +46,5 @@ def topk_mask_2d(x: torch.Tensor, threshold) -> torch.Tensor:
         code = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), thr.data_ptr(), x.numel(),
                                    build.current_stream(x.device))
     build.check(code, entry)
-    build.launch_counts["topk_mask_2d"] += 1
+    trace.count("launch.topk_mask_2d")
     return out

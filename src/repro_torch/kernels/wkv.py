@@ -20,8 +20,8 @@ stride along hd), so a transposed view costs no copy:
   8 up to 128), the S = 1 of a decode step among them: the recurrence
   itself, one step at a time.
 
-``build.launch_counts["wkv"]`` counts the launches of both,
-``build.route_counts["wkv_chunked"]`` those of the chunked route.
+The tracer's counter ``launch.wkv`` (``utils/trace``) counts the launches
+of both, ``route.wkv_chunked`` those of the chunked route.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.utils import trace
 
 MAX_HEAD_DIM = 128
 CHUNK = 64                      # steps a chunk of the chunked route
@@ -131,7 +132,7 @@ def wkv(r, k, v, logw, u, s0, chunk: int = 64) -> Tuple[torch.Tensor, torch.Tens
             name = "repro_wkv_f32"
             code = lib.repro_wkv_f32(*ptrs, B, H, S, hd, sb, sh, st, stream)
     build.check(code, name)
-    build.launch_counts["wkv"] += 1
+    trace.count("launch.wkv")
     if chunked:
-        build.route_counts["wkv_chunked"] += 1
+        trace.count("route.wkv_chunked")
     return y, s_out

@@ -64,6 +64,7 @@ from repro_torch.optim.schedule import clip_by_global_norm, get_schedule
 from repro_torch.parallel.collectives import DistributedWorld, InProcessWorld, World
 from repro_torch.parallel.grad_sync import allreduce_mean_leaves, make_plan, sync_grads
 from repro_torch.parallel.sharding import batch_shardable, shard_batch
+from repro_torch.utils import trace
 from repro_torch.utils.tree import tree_leaves, value_and_grad
 
 
@@ -108,18 +109,22 @@ def build_world(device: torch.device) -> tuple:
 def make_train_step(api, opt, world: World, comm: CommConfig, lr_fn,
                     clip_norm: float = 0.0):
     use_kernels = api.cfg.use_pallas != "never"
+    steps = itertools.count()
 
     def train_step(params, opt_state, batch):
-        (loss, metrics), grads = value_and_grad(api.loss_fn, params, batch)
-        if comm.mode == "explicit":
-            grads = sync_grads(grads, world, comm, use_kernels=use_kernels)
-        elif world.size > 1:
-            grads = allreduce_mean_leaves(grads, world)
-        gnorm = torch.zeros((), device=loss.device)
-        if clip_norm > 0:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
-        lr = lr_fn(opt_state.count)
-        new_p, new_o = opt.update(params, opt_state, grads, lr)
+        with trace.span("step", index=next(steps)):
+            (loss, metrics), grads = value_and_grad(api.loss_fn, params, batch)
+            if comm.mode == "explicit":
+                grads = sync_grads(grads, world, comm, use_kernels=use_kernels)
+            elif world.size > 1:
+                grads = allreduce_mean_leaves(grads, world)
+            gnorm = torch.zeros((), device=loss.device)
+            if clip_norm > 0:
+                with trace.span("step.clip"):
+                    grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            lr = lr_fn(opt_state.count)
+            with trace.span("step.update"):
+                new_p, new_o = opt.update(params, opt_state, grads, lr)
         return new_p, new_o, {"loss": loss, "grad_norm": gnorm, "lr": lr,
                               **metrics}
     return train_step

@@ -20,6 +20,7 @@ from repro_torch.models.layers import (Params, _device_of, _model_only, apply_ro
                                        project, rms_norm, torch_dtype)
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import write_at
+from repro_torch.utils import trace
 
 NEG_INF = -1e30
 
@@ -109,11 +110,12 @@ class _FlashKernelFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = _flash_reference(q, k, v, ctx.causal)
-        grads = torch.autograd.grad(out, (q, k, v), g)
-        return (*(t.contiguous() for t in grads), None)
+        with trace.span("attn.backward"):
+            q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+            with torch.enable_grad():
+                out = _flash_reference(q, k, v, ctx.causal)
+            grads = torch.autograd.grad(out, (q, k, v), g)
+            return (*(t.contiguous() for t in grads), None)
 
 
 def _flash_pallas_cv(q, k, v, causal: bool):

@@ -43,6 +43,7 @@ from repro_torch.models.layers import (Params, _device_of, chunked_softmax_xent,
 from repro_torch.parallel.sharding import (constrain_rows, constrain_seq, constrain_stream, lookup,
                                            row_placements, seq_axes, seq_placements,
                                            stacked_empty)
+from repro_torch.utils import trace
 from repro_torch.utils.tree import tree_map
 
 
@@ -188,6 +189,12 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             aux_acc = aux_acc + sum(aux.values())
         return h, aux_acc, cache
 
+    def remat_body(h, aux_acc, lp, use_moe, stack, i):
+        # a graph task runs only in backward: there this is the recompute
+        recompute = torch._C._current_graph_task_id() >= 0
+        with trace.span("layer.recompute", stack=stack, layer=i) if recompute else trace.NULL:
+            return body(h, aux_acc, lp, use_moe)[:2]
+
     for name, n_layers, use_moe in _stacks(cfg):
         aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(n_layers):
@@ -200,8 +207,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                 for key, val in cache.items():
                     caches[name][key][i] = val
             elif cfg.remat and torch.is_grad_enabled():
-                x, aux_acc = checkpoint(lambda h, a, p, m=use_moe: body(h, a, p, m)[:2],
-                                        x, aux_acc, lp, use_reentrant=False,
+                x, aux_acc = checkpoint(remat_body, x, aux_acc, lp, use_moe, name, i,
+                                        use_reentrant=False,
                                         preserve_rng_state=False, **_remat_options(cfg))
             else:
                 x, aux_acc, _ = body(x, aux_acc, lp, use_moe)

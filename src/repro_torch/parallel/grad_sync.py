@@ -45,6 +45,7 @@ from repro_torch.configs.base import CommConfig
 from repro_torch.core.schedule import lower_buckets
 from repro_torch.kernels import ops as kops
 from repro_torch.parallel.collectives import PerRank, World
+from repro_torch.utils import trace
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 
@@ -119,7 +120,9 @@ def make_plan(tree: Any, limit_mb: float) -> Tuple[BucketPlan, Any]:
 
 
 def pack_bucket(plan: BucketPlan, leaves: Sequence[torch.Tensor], bucket: int) -> torch.Tensor:
-    return torch.cat([leaves[i].float().reshape(-1) for i in plan.leaves_of(bucket)])
+    flat = torch.cat([leaves[i].float().reshape(-1) for i in plan.leaves_of(bucket)])
+    trace.count("sync.bytes_packed", 4 * flat.numel())
+    return flat
 
 
 def pack(plan: BucketPlan, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -143,69 +146,94 @@ def unpack(plan: BucketPlan, buckets: Sequence[torch.Tensor]) -> List[torch.Tens
 
 
 # ---------------------------------------------------------------------------
-# per-bucket collectives; xs holds one tensor per rank of the world
+# per-bucket collectives; xs holds one tensor per rank of the world.  Each
+# phase of a bucket is a span (``utils/trace``) with the bucket's id and the
+# bytes the phase reads (pack: the float32 bytes it writes), the ranks of
+# this process together.
 # ---------------------------------------------------------------------------
 
-def _allreduce_mean(xs: PerRank, world: World) -> PerRank:
-    return [t / world.size for t in world.all_reduce_sum(xs, "world")]
+def _nbytes(ts: Sequence[torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _hierarchical_mean(xs: PerRank, world: World) -> PerRank:
+def _all_gather(world: World, xs: PerRank, *group) -> PerRank:
+    trace.count("sync.bytes_gathered", _nbytes(xs))
+    return world.all_gather(xs, *group)
+
+
+def _allreduce_mean(xs: PerRank, world: World, bucket: int = 0) -> PerRank:
+    with trace.span("sync.gather", bucket=bucket, bytes=_nbytes(xs)):
+        sums = world.all_reduce_sum(xs, "world")
+    with trace.span("sync.add", bucket=bucket, bytes=_nbytes(sums)):
+        return [t / world.size for t in sums]
+
+
+def _hierarchical_mean(xs: PerRank, world: World, bucket: int = 0) -> PerRank:
     """In-node reduce-scatter -> cross-node all-reduce -> in-node all-gather."""
     nd = world.node_size
     n = xs[0].shape[0]
     pad = (-n) % nd
-    if pad:
-        xs = [torch.cat([x, x.new_zeros(pad)]) for x in xs]
-    shards = world.reduce_scatter_sum([x.reshape(nd, -1) for x in xs], "node")
-    if world.n_nodes > 1:
-        shards = world.all_reduce_sum(shards, "cross")
-    full = [g.reshape(-1) for g in world.all_gather(shards, "node")]
-    return [(f[:n] if pad else f) / world.size for f in full]
+    with trace.span("sync.gather", bucket=bucket, bytes=_nbytes(xs)):
+        if pad:
+            xs = [torch.cat([x, x.new_zeros(pad)]) for x in xs]
+        shards = world.reduce_scatter_sum([x.reshape(nd, -1) for x in xs], "node")
+        if world.n_nodes > 1:
+            shards = world.all_reduce_sum(shards, "cross")
+        full = [g.reshape(-1) for g in _all_gather(world, shards, "node")]
+    with trace.span("sync.add", bucket=bucket, bytes=_nbytes(full)):
+        return [(f[:n] if pad else f) / world.size for f in full]
 
 
 def _compressed_mean(xs: PerRank, comm: CommConfig, world: World,
-                     use_kernels: bool = True) -> PerRank:
+                     use_kernels: bool = True, bucket: int = 0) -> PerRank:
     """Horovod-compression semantics: all-gather compressed payloads, then
     dequantize and reduce locally with one fused K-way add."""
     n_total = world.size
-    if comm.compression == "fp16":
-        gathered = world.all_gather([x.to(torch.bfloat16) for x in xs])
-        return [kops.fused_add(g.reshape(n_total, -1), use_kernel=use_kernels) / n_total
-                for g in gathered]
     if comm.compression in ("int8", "ternary"):
         enc, dec = ((kops.quantize_int8, kops.dequantize_int8) if comm.compression == "int8"
                     else (kops.ternarize, kops.deternarize))
-        encoded = [enc(x, use_kernel=use_kernels) for x in xs]
+        with trace.span("sync.encode", bucket=bucket, bytes=_nbytes(xs)):
+            encoded = [enc(x, use_kernel=use_kernels) for x in xs]
         n = encoded[0][2]
-        qg = world.all_gather([e[0] for e in encoded])
-        sg = world.all_gather([e[1] for e in encoded])
+        codes, scales = [e[0] for e in encoded], [e[1] for e in encoded]
+        with trace.span("sync.gather", bucket=bucket, bytes=_nbytes(codes) + _nbytes(scales)):
+            qg = _all_gather(world, codes)
+            sg = _all_gather(world, scales)
         out = []
         for q_all, s_all in zip(qg, sg):
             # the reference multiplies inline and XLA fuses it into one pass;
             # the decode kernel is that pass, with the same values bit for bit
-            deq = dec(q_all.reshape(-1, kops.BLOCK), s_all.reshape(-1, 1), q_all.numel(),
-                      use_kernel=use_kernels)
-            total = kops.fused_add(deq.reshape(n_total, -1), use_kernel=use_kernels)
-            out.append(total[:n] / n_total)
+            with trace.span("sync.decode", bucket=bucket, bytes=_nbytes((q_all, s_all))):
+                deq = dec(q_all.reshape(-1, kops.BLOCK), s_all.reshape(-1, 1), q_all.numel(),
+                          use_kernel=use_kernels)
+            with trace.span("sync.add", bucket=bucket, bytes=_nbytes((deq,))):
+                total = kops.fused_add(deq.reshape(n_total, -1), use_kernel=use_kernels)
+                out.append(total[:n] / n_total)
         return out
-    if comm.compression == "topk":
+    if comm.compression == "fp16":
+        with trace.span("sync.encode", bucket=bucket, bytes=_nbytes(xs)):
+            payload = [x.to(torch.bfloat16) for x in xs]
+    elif comm.compression == "topk":
         # as the reference: the masked bucket travels dense (no sparse payload)
-        sparse = [kops.topk_sparsify(x, comm.topk_ratio, sample=1 << 14, use_kernel=use_kernels)
-                  for x in xs]
-        gathered = world.all_gather(sparse)
+        with trace.span("sync.encode", bucket=bucket, bytes=_nbytes(xs)):
+            payload = [kops.topk_sparsify(x, comm.topk_ratio, sample=1 << 14,
+                                          use_kernel=use_kernels) for x in xs]
+    else:
+        raise ValueError(comm.compression)
+    with trace.span("sync.gather", bucket=bucket, bytes=_nbytes(payload)):
+        gathered = _all_gather(world, payload)
+    with trace.span("sync.add", bucket=bucket, bytes=_nbytes(gathered)):
         return [kops.fused_add(g.reshape(n_total, -1), use_kernel=use_kernels) / n_total
                 for g in gathered]
-    raise ValueError(comm.compression)
 
 
 def _sync_bucket(xs: PerRank, comm: CommConfig, world: World,
-                 use_kernels: bool = True) -> PerRank:
+                 use_kernels: bool = True, bucket: int = 0) -> PerRank:
     if comm.compression != "none":
-        return _compressed_mean(xs, comm, world, use_kernels)
+        return _compressed_mean(xs, comm, world, use_kernels, bucket)
     if comm.hierarchical:
-        return _hierarchical_mean(xs, world)
-    return _allreduce_mean(xs, world)
+        return _hierarchical_mean(xs, world, bucket)
+    return _allreduce_mean(xs, world, bucket)
 
 
 # ---------------------------------------------------------------------------
@@ -220,16 +248,20 @@ def sync_grads_per_rank(grads: Sequence[Any], world: World, comm: CommConfig,
     if len(grads) != world.local_ranks:
         raise ValueError(f"expected {world.local_ranks} gradient trees, got {len(grads)}")
     template = grads[0]
-    plan, _ = make_plan(template, comm.fusion_buffer_mb)
-    leaves = [tree_leaves(g) for g in grads]
-    new_leaves: List[List[Any]] = [[None] * len(leaves[0]) for _ in grads]
-    for b in plan.comm_plan(comm).bucket_order():
-        xs = [pack_bucket(plan, rank_leaves, b) for rank_leaves in leaves]
-        synced = _sync_bucket(xs, comm, world, use_kernels)
-        del xs
-        for r, flat in enumerate(synced):
-            for i, leaf in unpack_bucket(plan, flat, b).items():
-                new_leaves[r][i] = leaf
+    with trace.span("step.sync"):
+        plan, _ = make_plan(template, comm.fusion_buffer_mb)
+        leaves = [tree_leaves(g) for g in grads]
+        new_leaves: List[List[Any]] = [[None] * len(leaves[0]) for _ in grads]
+        for b in plan.comm_plan(comm).bucket_order():
+            f32_bytes = 4 * plan.bucket_sizes[b] * len(grads)
+            with trace.span("sync.pack", bucket=b, bytes=f32_bytes):
+                xs = [pack_bucket(plan, rank_leaves, b) for rank_leaves in leaves]
+            synced = _sync_bucket(xs, comm, world, use_kernels, b)
+            del xs
+            with trace.span("sync.unpack", bucket=b, bytes=f32_bytes):
+                for r, flat in enumerate(synced):
+                    for i, leaf in unpack_bucket(plan, flat, b).items():
+                        new_leaves[r][i] = leaf
     return [tree_unflatten(template, nl) for nl in new_leaves]
 
 
@@ -260,8 +292,9 @@ def allreduce_mean_leaves(grads: Any, world: World) -> Any:
     XLA inserts under SPMD.  For a process that holds one rank."""
     if world.local_ranks != 1:
         raise ValueError("allreduce_mean_leaves takes one rank's tree")
-    return tree_unflatten(grads, [world.all_reduce_sum([g])[0] / world.size
-                                  for g in tree_leaves(grads)])
+    with trace.span("step.sync"):
+        return tree_unflatten(grads, [world.all_reduce_sum([g])[0] / world.size
+                                      for g in tree_leaves(grads)])
 
 
 def grad_sync_flops_and_bytes(total_bytes: int, n_workers: int,

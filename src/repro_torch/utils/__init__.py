@@ -1,1 +1,1 @@
-"""Small helpers shared by the port: parameter-tree walking."""
+"""Small helpers shared by the port: parameter-tree walking and the tracer."""

@@ -11,6 +11,8 @@ from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
+from repro_torch.utils import trace
+
 
 def _is_leaf(node: Any) -> bool:
     return not isinstance(node, (dict, list, tuple))
@@ -68,8 +70,10 @@ def value_and_grad(fn: Callable, params: Any, *args) -> Tuple[Tuple[torch.Tensor
     for leaf in leaves:
         leaf.requires_grad_(True)
     try:
-        loss, aux = fn(params, *args)
-        grads = torch.autograd.grad(loss, leaves)
+        with trace.span("step.forward"):
+            loss, aux = fn(params, *args)
+        with trace.span("step.backward"):
+            grads = torch.autograd.grad(loss, leaves)
     finally:
         for leaf, h in zip(leaves, had):
             leaf.requires_grad_(h)

@@ -15,8 +15,8 @@ from _torch_port import np32, to_jax, to_torch
 from repro.configs import get_config as jget
 from repro.models import attention as ja
 from repro_torch.configs import get_config as tget
-from repro_torch.kernels import build
 from repro_torch.models import attention as ta
+from repro_torch.utils import trace
 
 # f32 online softmax in the same block order on both sides; exp and the
 # matmul summation order differ between XLA and ATen
@@ -65,14 +65,14 @@ def test_gqa_forward_value_and_input_grad(mode):
 
     pt = {k: to_torch(v) for k, v in p.items()}
     xt = to_torch(x).requires_grad_(True)
-    build.reset_launch_counts()
+    trace.reset_counts()
     out_t, cache_t = ta.gqa_forward(pt, xt, ct)
     (g_t,) = torch.autograd.grad(out_t.sum(), xt)
     np.testing.assert_allclose(np32(out_t), np.asarray(out_j), **TOL)
     np.testing.assert_allclose(np32(g_t), np.asarray(g_j), **TOL)
     np.testing.assert_allclose(np32(cache_t["k"]), np.asarray(cache_j["k"]), **TOL)
     assert tuple(cache_t["v"].shape) == (2, 128, KV, hd)
-    assert build.launch_counts["flash_attention"] == 0     # CPU tensors: no launch
+    assert trace.counts("launch")["flash_attention"] == 0     # CPU tensors: no launch
 
 
 def test_kernel_dispatch_rule():

@@ -33,9 +33,9 @@ from repro_torch.core import addest as taddest  # noqa: E402
 from repro_torch.core import codec as tcodec  # noqa: E402
 from repro_torch.core import timeline as ttimeline  # noqa: E402
 from repro_torch.core.flops import layer_breakdown_from_params as tbreakdown  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.registry import get_model as tmodel  # noqa: E402
+from repro_torch.utils import trace  # noqa: E402
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 SIZES = np.concatenate([[-1.0, 0.0, 0.5, 1.0, 3.0], np.logspace(0, 34, 97, base=2.0),
@@ -185,7 +185,7 @@ def test_check_table_flags_what_the_reference_flags(committed, fresh, tmp_path):
 
 
 def test_calibrate_on_the_cpu_writes_the_schema(tmp_path):
-    build.reset_launch_counts()
+    trace.reset_counts()
     out = tmp_path / "t.json"
     rc = tbench.main(["--calibrate", "--quick", "--device", "cpu", "--elements", str(1 << 14),
                       "--out", str(out)])
@@ -206,7 +206,7 @@ def test_calibrate_on_the_cpu_writes_the_schema(tmp_path):
     assert t["probe_us"] > 0 and t["launch_probe_us"] > 0
     # a table gated against itself passes; the plain versions launched nothing
     assert tbench.check_table(t, out) == []
-    assert all(v == 0 for v in build.launch_counts.values())
+    assert all(v == 0 for v in trace.counts("launch").values())
     # the CPU table reads back through the codec module like the committed one
     table = tcodec.load_codec_table(str(out))
     assert table["int8"] == {"encode": t["codecs"]["int8"]["encode_passes"],

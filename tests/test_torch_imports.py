@@ -183,12 +183,13 @@ def test_every_subpackage_is_a_package_and_sources_ship():
         "quantize.cu", "fused_add.cu", "flash_attn.cu", "flash_attn_sm90.cu", "topk_mask.cu",
         "wkv.cu", "wkv_sm90.cu", "ssm_scan.cu", "ssm_scan_sm90.cu", "probe_copy.cu"}
     from repro_torch.kernels import build
+    from repro_torch.utils import trace
     assert set(build.SOURCES) == {p.name for p in (PKG / "kernels" / "csrc").glob("*.cu")}
     assert (PKG / "launch" / "serve.py").exists() and (PKG / "models" / "rwkv.py").exists()
     for name in ("mamba.py", "moe.py", "jamba.py"):
         assert (PKG / "models" / name).exists(), name
     assert (PKG / "kernels" / "ssm_scan.py").exists() and (PKG / "configs" / "jamba_v0_1_52b.py").exists()
-    assert build.launch_counts.get("ssm_scan") == 0 and "repro_ssm_scan" in build._SIGNATURES
-    assert build.route_counts == {"wkv_chunked": 0, "ssm_scan_fused": 0}
+    assert trace.counts("launch")["ssm_scan"] == 0 and "repro_ssm_scan" in build._SIGNATURES
+    assert trace.counts("route")["wkv_chunked"] == trace.counts("route")["ssm_scan_fused"] == 0
     assert "repro_wkv_chunked_f32" in build._SIGNATURES and "repro_ssm_scan_fused" in build._SIGNATURES
     assert "repro_torch/kernels/_build/" in (REPO / ".gitignore").read_text()

@@ -21,12 +21,12 @@ from repro.configs import get_config as jget
 from repro.launch import serve as jserve
 from repro.models.registry import get_model as jmodel, pad_cache as jpad
 from repro_torch.configs import get_config as tget
-from repro_torch.kernels import build
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.models import jamba as tj
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.registry import get_model as tmodel, pad_cache as tpad
+from repro_torch.utils import trace
 from repro_torch.utils.tree import tree_leaves, tree_paths, value_and_grad
 
 ARCH = "jamba-v0.1-52b"
@@ -121,10 +121,10 @@ def test_loss_and_every_gradient_leaf(Sl, mode, remat):
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     (loss_j, met_j), grads_j = jax.jit(jax.value_and_grad(api_j.loss_fn, has_aux=True))(
         params_j, {k: to_jax(v) for k, v in batch.items()})
-    build.reset_launch_counts()
+    trace.reset_counts()
     (loss_t, met_t), grads_t = value_and_grad(
         api_t.loss_fn, params_t, {k: to_torch(v) for k, v in batch.items()})
-    assert all(c == 0 for c in build.launch_counts.values())    # CPU tensors: no launch
+    assert all(c == 0 for c in trace.counts("launch").values())    # CPU tensors: no launch
     for key in ("xent", "aux"):
         np.testing.assert_allclose(float(met_t[key]), float(met_j[key]), **MODEL_TOL)
     np.testing.assert_allclose(float(loss_t), float(loss_j), **MODEL_TOL)

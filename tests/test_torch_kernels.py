@@ -17,13 +17,13 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attn import flash_attention_pallas
 from repro.kernels.topk_mask import topk_mask_2d as jtopk_mask_2d
-from repro_torch.kernels import build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.flash_attn import (check_kernel_shape, flash_attention_cuda,
                                             flash_attention_plain)
 from repro_torch.kernels.probe import probe_copy_2d, probe_copy_2d_plain
 from repro_torch.kernels.quantize import BLOCK, dequantize_int8_2d, dequantize_int8_2d_plain
 from repro_torch.kernels.topk_mask import topk_mask_2d, topk_mask_2d_plain
+from repro_torch.utils import trace
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))    # benchmarks/
 
@@ -286,9 +286,9 @@ def test_flash_cpu_branch_takes_any_shape():
     """On CPU tensors the wrapper runs the plain version, whatever the shape."""
     rng = np.random.default_rng(3)
     q, k, v = (to_torch(rng.standard_normal((2, 96, 84)).astype(np.float32)) for _ in range(3))
-    build.reset_launch_counts()
+    trace.reset_counts()
     out = flash_attention_cuda(q, k, v, causal=True)
-    assert build.launch_counts["flash_attention"] == 0
+    assert trace.counts("launch")["flash_attention"] == 0
     torch.testing.assert_close(out, flash_attention_plain(q, k, v, causal=True))
 
 
@@ -309,7 +309,7 @@ def test_wrappers_validate_inputs():
 
 
 def test_cpu_path_launches_no_kernel():
-    build.reset_launch_counts()
+    trace.reset_counts()
     tops.quantize_int8(torch.ones(10))
     tops.ternarize(torch.ones(10))
     tops.fused_add(torch.ones(2, 10))
@@ -322,7 +322,4 @@ def test_cpu_path_launches_no_kernel():
     tops.dequantize_int8(q, s, n)
     tops.deternarize(q, s, n)
     probe_copy_2d(torch.ones(64, BLOCK))
-    assert set(build.launch_counts) == {"quantize_int8_2d", "ternarize_2d", "fused_add_2d",
-                                        "flash_attention", "topk_mask_2d", "wkv", "ssm_scan",
-                                        "dequantize_int8_2d", "probe_copy_2d"}
-    assert all(v == 0 for v in build.launch_counts.values())
+    assert trace.counts("launch") == {} and trace.counts("route") == {}

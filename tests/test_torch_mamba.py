@@ -20,9 +20,9 @@ from repro.configs import get_config as jget
 from repro.kernels.ssm_scan import ssm_scan_pallas
 from repro.models import mamba as jm
 from repro_torch.configs import get_config as tget
-from repro_torch.kernels import build
 from repro_torch.kernels import ssm_scan as tss
 from repro_torch.models import mamba as tm
+from repro_torch.utils import trace
 
 # tests/test_model_kernels.py's tolerance for the scan kernel and the mixer:
 # f32 sums in another order
@@ -111,9 +111,9 @@ def test_ssm_scan_wrapper_checks_its_inputs():
         tss.ssm_scan(z.double(), z, c, h)
     with pytest.raises(ValueError):
         tss.ssm_scan(z, z.bfloat16(), c, h)
-    build.reset_launch_counts()
+    trace.reset_counts()
     y, _ = tss.ssm_scan(z.bfloat16(), z.bfloat16(), c.bfloat16(), h)    # bf16 streams, f32 out
-    assert y.dtype == torch.float32 and build.launch_counts["ssm_scan"] == 0
+    assert y.dtype == torch.float32 and trace.counts("launch")["ssm_scan"] == 0
 
 
 def _fused_inputs(B, S, di, n, seed):
@@ -146,13 +146,13 @@ def test_ssm_scan_fused_plain_matches_jax_formation_and_pallas(S, chunk, x_dtype
     h_ref = h_ref.transpose(0, 2, 1)
     args = (to_torch(dt), to_torch(x, getattr(torch, x_dtype)), to_torch(b_t), to_torch(c_t),
             to_torch(a), to_torch(h0))
-    build.reset_launch_counts()
+    trace.reset_counts()
     for y_t, h_t in (tss.ssm_scan_fused_plain(*args), tss.ssm_scan_fused(*args)):
         assert tuple(y_t.shape) == (2, S, 128) and tuple(h_t.shape) == (2, 128, 16)
         assert y_t.dtype == h_t.dtype == torch.float32
         np.testing.assert_allclose(np32(y_t), np.asarray(y_ref), **SCAN_TOL)
         np.testing.assert_allclose(np32(h_t), np.asarray(h_ref), **SCAN_TOL)
-    assert build.launch_counts["ssm_scan"] == build.route_counts["ssm_scan_fused"] == 0
+    assert trace.counts("launch")["ssm_scan"] == trace.counts("route")["ssm_scan_fused"] == 0
 
 
 def test_ssm_scan_fused_forms_what_the_mixer_forms():

@@ -17,11 +17,11 @@ from repro.kernels.wkv import wkv_pallas
 from repro.models import rwkv as jr
 from repro.models.registry import get_model as jmodel
 from repro_torch.configs import get_config as tget
-from repro_torch.kernels import build
 from repro_torch.kernels import wkv as twkv
 from repro_torch.models import rwkv as tr
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.registry import get_model as tmodel
+from repro_torch.utils import trace
 from repro_torch.utils.tree import tree_leaves, tree_paths, value_and_grad
 
 # tests/test_model_kernels.py's tolerance for the WKV kernels: f32 sums in
@@ -160,10 +160,10 @@ def test_loss_and_every_gradient_leaf(S, mode, remat):
     (loss_j, met_j), grads_j = jax.value_and_grad(api_j.loss_fn, has_aux=True)(
         params_j, {k: to_jax(v) for k, v in batch.items()})
     params_t = params_from_jax(jax_tree_to_numpy(params_j), ct)
-    build.reset_launch_counts()
+    trace.reset_counts()
     (loss_t, met_t), grads_t = value_and_grad(
         api_t.loss_fn, params_t, {k: to_torch(v) for k, v in batch.items()})
-    assert build.launch_counts["wkv"] == 0                  # CPU tensors: no launch
+    assert trace.counts("launch")["wkv"] == 0                  # CPU tensors: no launch
     np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=2e-5)
     np.testing.assert_allclose(float(met_t["xent"]), float(met_j["xent"]), rtol=2e-5)
     flat_j = jax.tree_util.tree_leaves(grads_j)

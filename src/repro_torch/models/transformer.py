@@ -3,10 +3,10 @@ or MLA attention, for training and serving.
 
 Layer parameters are stacked along a leading axis (``blocks.attn.wq`` is
 ``(n, d_model, d_model)``), exactly as in the JAX package, and each stack
-is walked by a Python loop over ``param[i]`` views, the counterpart of
-``lax.scan`` there.  An MoE config with ``moe.first_dense`` leading dense
-layers keeps them in a stack of their own, ``first_blocks``, run before the
-MoE stack ``blocks``.  With ``cfg.remat`` each layer runs under
+is walked by a Python loop over per-layer views (``_layer_views``), the
+counterpart of ``lax.scan`` there.  An MoE config with ``moe.first_dense``
+leading dense layers keeps them in a stack of their own, ``first_blocks``,
+run before the MoE stack ``blocks``.  With ``cfg.remat`` each layer runs under
 ``torch.utils.checkpoint``, which carries the MoE auxiliary losses out with
 the residual stream (the reference's scan carry).  A VLM prepends its
 prefix embeddings to the token embeddings; the loss drops those positions,
@@ -44,7 +44,7 @@ from repro_torch.parallel.sharding import (constrain_rows, constrain_seq, constr
                                            row_placements, seq_axes, seq_placements,
                                            stacked_empty)
 from repro_torch.utils import trace
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def n_first_dense(cfg: ModelConfig) -> int:
@@ -129,6 +129,29 @@ def _layouts(cfg: ModelConfig, x: torch.Tensor):
             functools.partial(constrain_seq, axes=axes, grad_placements=rows))
 
 
+def _layer_views(stack: Params, n_layers: int):
+    """The per-layer trees of a stack, in order.  Each plain-tensor leaf is
+    cut by one ``torch.unbind``, whose backward stacks the layers' gradients
+    once; the backward of ``p[i]`` would write a zero-filled gradient of the
+    whole leaf for every layer and autograd would add them up.  A DTensor
+    leaf is sliced ``p[i]`` as its layer comes: DTensor's ``unbind`` rule
+    raises where the cut dim is sharded.  Counts ``stack.unbound``, a leaf
+    each."""
+    from torch.distributed.tensor import DTensor
+
+    leaves = tree_leaves(stack)
+    cuts = []
+    for p in leaves:
+        if isinstance(p, DTensor):
+            cuts.append(None)
+        else:
+            cuts.append(torch.unbind(p))
+            trace.count("stack.unbound")
+    for i in range(n_layers):
+        yield tree_unflatten(stack, [p[i] if c is None else c[i]
+                                     for p, c in zip(leaves, cuts)])
+
+
 def _block_forward(bp: Params, x: torch.Tensor, cfg: ModelConfig, use_moe: bool,
                    q_offset: int = 0):
     """One transformer layer.  Returns (x, aux, cache)."""
@@ -197,8 +220,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
     for name, n_layers, use_moe in _stacks(cfg):
         aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(n_layers):
-            lp = tree_map(lambda p: p[i], params[name])
+        for i, lp in enumerate(_layer_views(params[name], n_layers)):
             if want_cache:
                 x, aux_acc, cache = body(x, aux_acc, lp, use_moe)
                 if i == 0:        # the stacked cache, written a layer at a time

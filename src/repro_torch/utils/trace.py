@@ -32,8 +32,10 @@ by backward); ``attn.backward`` (``models/attention._FlashKernelFn``);
 ``count(name, n)`` always counts, into one cumulative registry:
 ``launch.<kernel>`` (a hand-written kernel launched), ``route.<route>``
 (a launch on a kernel's second route, counted under ``launch.`` as well),
-``sync.bytes_packed`` (float32 bytes packed into buckets) and
-``sync.bytes_gathered`` (bytes handed to ``all_gather``).
+``sync.bytes_packed`` (float32 bytes packed into buckets),
+``sync.bytes_gathered`` (bytes handed to ``all_gather``) and
+``stack.unbound`` (a stacked layer leaf cut once by ``torch.unbind`` in
+``models/transformer.forward``; DTensor leaves are sliced and not counted).
 """
 from __future__ import annotations
 

@@ -76,12 +76,13 @@ def main(argv=None):
         if seed in faults and "order" in args.witness:
             # the reference against itself with its attention in blocks of
             # 512 queries: the same arithmetic in another float32 order
-            from portbench.reference import model
-            attention = model.attention
-            model.attention = lambda q, k, v, mm, block=1024: attention(q, k, v, mm, 512)
+            from portbench.counts.arch import module
+            reference = module(cell.arch, "reference")
+            attention = reference.attention
+            reference.attention = lambda q, k, v, mm, block=1024: attention(q, k, v, mm, 512)
             t0 = time.time()
             other = trainer.reference_readings(cell, seed, device, cell.world)
-            model.attention = attention
+            reference.attention = attention
             record("witness_reference_order", seed, other, t0)
         if seed in faults and "embedding" in args.witness:
             # the program once more, its embedding lookup's backward summing

@@ -1,21 +1,25 @@
 """A cell of ``BENCHMARK.json``, found by name, with everything that belongs
 to it in files of their own:
 
-- ``portbench/configs/<config>.json``: the model (``counts.arch``);
+- ``portbench/configs/<config>.json``: the model (``counts.arch``), and in
+  its ``port`` the modules under ``portbench/`` of its plain reference
+  (``port.reference``) and of its FLOP count (``port.counts``), and the
+  program's settings for its block (``port.program``);
 - ``portbench/traffic/<mix>.json``: the traffic and the training recipe;
 - ``portbench/cells/<workload>.json``: ``world`` (data-parallel ranks, one
   a card; 1 if absent), the steps the reference follows, the traced steps
   and the limits of the comparison;
 - ``portbench/metrics/<metric>.py``: a reader for each metric.
 
-Adding a configuration, a mix, a cell or a metric adds files and entries;
-no code here names one.
+Adding a configuration, a mix, a cell or a metric adds files and entries,
+also for a block that ``reference/model.py`` does not know; no code here
+names one.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from pathlib import Path
 from typing import Dict, List
 
@@ -59,7 +63,7 @@ def load(workload: str, root: Path = ROOT) -> Cell:
     here = root / "portbench"
     return Cell(
         name=workload, chips=int(w["chips"]), config=w["config"],
-        arch=arch_lib.load(root / config["file"], w["config"]),
+        arch=arch_lib.load(root / config["file"], w["config"], here),
         traffic=json.loads((here / "traffic" / f"{w['traffic']}.json").read_text()),
         cell=json.loads((here / "cells" / f"{workload}.json").read_text()),
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, workload)],
@@ -76,7 +80,8 @@ def reader(name: str, root: Path = ROOT):
 
 
 def model_config(cell: Cell):
-    """The program's ``ModelConfig`` for the cell's configuration file."""
+    """The program's ``ModelConfig`` for the cell's configuration file: its
+    sizes, then the file's ``port.program`` keyword arguments on top."""
     from repro_torch.configs.base import ModelConfig, MoEConfig
 
     a = cell.arch
@@ -87,12 +92,18 @@ def model_config(cell: Cell):
                         d_ff_expert=m.d_ff_expert, every=m.every, first_dense=m.first_dense,
                         capacity_factor=m.capacity_factor, router_z_loss=m.router_z_loss,
                         load_balance_loss=m.load_balance_loss)
-    return ModelConfig(
+    cfg = ModelConfig(
         name=cell.config, family="moe" if moe else "dense", num_layers=a.n_layers,
         d_model=a.d_model, num_heads=a.n_heads, num_kv_heads=a.n_kv_heads, d_ff=a.d_ff,
         vocab_size=a.vocab, head_dim=a.head_dim, moe=moe, rope_theta=a.rope_theta,
         norm_eps=a.norm_eps, tie_embeddings=a.tie_embeddings, logit_chunk=a.logit_chunk,
         dtype=a.dtype, remat_policy=cell.traffic["remat_policy"], source=a.source)
+    program = dict(a.port.get("program", {}))
+    unknown = sorted(set(program) - {f.name for f in fields(ModelConfig)})
+    if unknown:
+        raise ValueError(f"{cell.config}: port.program names {unknown}, which the program's "
+                         f"ModelConfig does not have")
+    return cfg.replace(**program)
 
 
 def limits(cell: Cell) -> Dict[str, float]:

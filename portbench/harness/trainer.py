@@ -14,7 +14,9 @@ Set-up runs the cell's checked steps through that same step and feed,
 reading the program's losses, its first gradients (from AdamW's first
 moment) and its weights' change, then the window runs for ``seconds``.
 After it the program's state is freed and the reference follows the same
-steps from the same seed (rank 0 only).
+steps from the same seed (rank 0 only).  The reference, its layout and its
+rule for its own leaves' values are those of the configuration's
+``port.reference`` (``counts/arch.module``).
 """
 from __future__ import annotations
 
@@ -26,10 +28,10 @@ from typing import Optional
 
 import torch
 
+from portbench.counts import arch as arch_lib
 from portbench.harness import check, spec, traffic as traffic_lib, weights
 from portbench.harness.tracing import STEP, Spans, name_gaps, reduce_profile
 from portbench.harness.window import Window
-from portbench.reference import model as ref_model
 from portbench.reference.train import Readings, follow
 
 
@@ -49,7 +51,8 @@ def program_leaves(cell: spec.Cell):
     api = get_model(spec.model_config(cell))
     meta = api.init(None, device="meta")
     leaves = [(p, tuple(t.shape)) for p, t in zip(tree_paths(meta), tree_leaves(meta))]
-    expected = sorted(ref_model.leaves(cell.arch), key=lambda ps: weights.sort_key(ps[0]))
+    ref = arch_lib.module(cell.arch, "reference")
+    expected = sorted(ref.leaves(cell.arch), key=lambda ps: weights.sort_key(ps[0]))
     if leaves != expected:
         raise RuntimeError(f"{cell.config}: the program's parameter tree is not the reference's "
                            f"layout:\n  program   {leaves}\n  reference {expected}")
@@ -72,7 +75,8 @@ class Program:
         t = cell.traffic
         self.api, meta, self.leaves = program_leaves(cell)
         self.world, self.device = train_mod.build_world(device)
-        w = weights.make(self.leaves, seed, self.device, getattr(torch, cell.arch.dtype))
+        w = weights.make(self.leaves, seed, self.device, getattr(torch, cell.arch.dtype),
+                         getattr(arch_lib.module(cell.arch, "reference"), "init", None))
         self.params = tree_unflatten(meta, [w.pop(p) for p, _ in self.leaves])
         o = t["optimizer"]
         opt = get_optimizer(o["name"], b1=o["b1"], b2=o["b2"], eps=o["eps"],
@@ -207,7 +211,9 @@ def reference_readings(cell: spec.Cell, seed: int, device: torch.device, world: 
     try:
         n = int(cell.cell["checked_steps"])
         gen = traffic_lib.for_cell(cell.arch.vocab, cell.traffic, seed)
-        w = weights.make(ref_model.leaves(cell.arch), seed, device, getattr(torch, cell.arch.dtype))
+        ref = arch_lib.module(cell.arch, "reference")
+        w = weights.make(ref.leaves(cell.arch), seed, device, getattr(torch, cell.arch.dtype),
+                         getattr(ref, "init", None))
         return follow(cell.arch, w, [gen(i) for i in range(n)], cell.traffic, world, precision,
                       half)
     finally:

@@ -9,11 +9,16 @@ embedding, the head and the router normal with std 0.02, every other
 matrix normal with std 1/sqrt(fan-in), the fan-in being its next-to-last
 dim (the layers and experts are stacked in front).  The same seed gives
 the same weights; nothing is read from the program.
+
+A configuration's reference may give ``init(path)``: a constant that
+every element of that leaf takes (1.0 for a norm's scale that the rule
+above does not know, 0.0 for a correction bias), or None for the rule
+above.  A constant leaf draws nothing from the generator.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,12 +40,18 @@ def std_of(path: str) -> float:
 
 
 def make(leaves: Sequence[Tuple[str, Sequence[int]]], seed: int, device,
-         dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """{path: tensor} for ``leaves`` [(path, shape)], drawn in path order."""
+         dtype: torch.dtype,
+         init: Optional[Callable[[str], Optional[float]]] = None) -> Dict[str, torch.Tensor]:
+    """{path: tensor} for ``leaves`` [(path, shape)], drawn in path order;
+    ``init``: the reference's rule for its own leaves."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
     out: Dict[str, torch.Tensor] = {}
     for path, shape in sorted(leaves, key=lambda ps: sort_key(ps[0])):
         shape = tuple(int(s) for s in shape)
+        const = init(path) if init is not None else None
+        if const is not None:
+            out[path] = torch.full(shape, float(const), dtype=dtype, device=device)
+            continue
         std = std_of(path)
         if std == 0.0:
             out[path] = torch.ones(shape, dtype=dtype, device=device)

@@ -14,6 +14,10 @@ router-z losses added to the loss; a head over the vocabulary padded to
 block of the loss is checkpointed, so that a full-size model fits beside
 its float32 weights, gradients and AdamW state.  Plain PyTorch only: it
 imports nothing of the program.
+
+It is the default reference (``port.reference``, ``counts/arch.py``).  A
+reference of another block reuses its layout, MLP, MoE and loss, and gives
+``leaves`` and ``loss`` an attention of its own (``reference/mla.py``).
 """
 from __future__ import annotations
 
@@ -30,16 +34,21 @@ Products = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 NEG = -1e30
 
 
-def leaves(a: Arch) -> List[Tuple[str, tuple]]:
+def mha_leaves(a: Arch, stack: str, n: int) -> List[Tuple[str, tuple]]:
+    """The attention's leaves of a stack of ``n`` layers."""
+    D, H, KV, hd = a.d_model, a.n_heads, a.n_kv_heads, a.head_dim
+    return [(f"{stack}.attn.wq", (n, D, H * hd)), (f"{stack}.attn.wk", (n, D, KV * hd)),
+            (f"{stack}.attn.wv", (n, D, KV * hd)), (f"{stack}.attn.wo", (n, H * hd, D))]
+
+
+def leaves(a: Arch, attn_leaves=mha_leaves) -> List[Tuple[str, tuple]]:
     """[(dotted path, shape)] of every parameter, layers stacked in front."""
-    D, H, KV, hd, Vp = a.d_model, a.n_heads, a.n_kv_heads, a.head_dim, a.padded_vocab
+    D, Vp = a.d_model, a.padded_vocab
     out = [("embed.w", (Vp, D)), ("final_norm.w", (D,))]
     if not a.tie_embeddings:
         out.append(("lm_head.w", (D, Vp)))
     for stack, n, is_moe in a.stacks():
-        out += [(f"{stack}.attn.wq", (n, D, H * hd)), (f"{stack}.attn.wk", (n, D, KV * hd)),
-                (f"{stack}.attn.wv", (n, D, KV * hd)), (f"{stack}.attn.wo", (n, H * hd, D)),
-                (f"{stack}.ln1.w", (n, D)), (f"{stack}.ln2.w", (n, D))]
+        out += attn_leaves(a, stack, n) + [(f"{stack}.ln1.w", (n, D)), (f"{stack}.ln2.w", (n, D))]
         if is_moe:
             m = a.moe
             E, Fe = m.n_experts, m.d_ff_expert
@@ -135,14 +144,19 @@ def moe(h, p: Dict[str, torch.Tensor], a: Arch, mm: Products):
     return out, lb + z
 
 
-def block(x, p: Dict[str, torch.Tensor], a: Arch, is_moe: bool, mm: Products):
-    B, S, _ = x.shape
+def mha(h, p: Dict[str, torch.Tensor], a: Arch, mm: Products):
+    """The attention sublayer of one layer: (B, S, D) normalised -> (B, S, D)."""
+    B, S, _ = h.shape
     H, KV, hd = a.n_heads, a.n_kv_heads, a.head_dim
-    h = rms_norm(x, p["ln1.w"], a.norm_eps)
     q, k, v = (mm(h, p[f"attn.{w}"]).reshape(B, S, n, hd).transpose(1, 2)
                for w, n in (("wq", H), ("wk", KV), ("wv", KV)))
     o = attention(rope(q, a.rope_theta), rope(k, a.rope_theta), v, mm)
-    x = x + mm(o.transpose(1, 2).reshape(B, S, H * hd), p["attn.wo"])
+    return mm(o.transpose(1, 2).reshape(B, S, H * hd), p["attn.wo"])
+
+
+def block(x, p: Dict[str, torch.Tensor], a: Arch, is_moe: bool, mm: Products, attend=mha):
+    h = rms_norm(x, p["ln1.w"], a.norm_eps)
+    x = x + attend(h, p, a, mm)
     h = rms_norm(x, p["ln2.w"], a.norm_eps)
     if is_moe:
         y, aux = moe(h, p, a, mm)
@@ -161,9 +175,10 @@ def _xent_sum(x, head, labels, weight, vocab: int, mm: Products):
 
 
 def loss(params: Dict[str, torch.Tensor], tokens, labels, a: Arch, mm: Products,
-         half: bool = False):
+         half: bool = False, attend=mha):
     """Mean cross-entropy plus the MoE losses.  ``half``: a planted fault,
-    the mean taken over the first half of the batch's tokens only."""
+    the mean taken over the first half of the batch's tokens only;
+    ``attend``: each layer's attention sublayer."""
     B, S = tokens.shape
     x = params["embed.w"][tokens.long()]
     aux = torch.zeros((), device=x.device)
@@ -171,7 +186,7 @@ def loss(params: Dict[str, torch.Tensor], tokens, labels, a: Arch, mm: Products,
         for i in range(n):
             lp = {k[len(stack) + 1:]: w[i] for k, w in params.items()
                   if k.startswith(stack + ".")}
-            x, au = checkpoint(block, x, lp, a, is_moe, mm, use_reentrant=False)
+            x, au = checkpoint(block, x, lp, a, is_moe, mm, attend, use_reentrant=False)
             aux = aux + au
     x = rms_norm(x, params["final_norm.w"], a.norm_eps)
     head = params["embed.w"].T if a.tie_embeddings else params["lm_head.w"]

@@ -1,8 +1,9 @@
 """The reference's training steps: the same weights and batches as the
 program's first steps, followed in float32 (TF32 off).
 
-A step is the loss and its gradient (``model.loss``), the gradient sync of
-one rank a batch shard (each rank's gradient through the codec, then their
+A step is the loss and its gradient (the ``loss`` of the configuration's
+reference, ``port.reference``: ``reference/model.py`` by default), the
+gradient sync of one rank a batch shard (each rank's gradient through the codec, then their
 mean), clipping by the global norm, and AdamW with bias correction and
 decoupled weight decay on leaves of two dims or more.  The weights are held
 between steps in the configuration's dtype, as the configuration states the
@@ -11,6 +12,14 @@ frozen bucket plan (``counts.buckets``) and the int8 round trip: a scale of
 max|x| / 127 a block of 256, codes rounded half to even and clipped to
 +-127.  What it reads: each step's loss, each leaf's first gradient as
 AdamW gets it, each leaf's change over the steps.
+
+State that changes by a rule and not by the gradient (DeepSeek-V3's
+router correction bias, b_i += gamma * sign(mean load - load_i),
+arXiv:2412.19437 §2.1.2) is the reference's: its ``loss`` returns
+``(loss, extra)`` in place of the loss, and its ``after_update(params,
+extras, arch)`` is called after AdamW each step with ``{path: float32
+weight}`` and every rank's ``extra``, to change the weights in place;
+they are then rounded to the stored dtype again.
 """
 from __future__ import annotations
 
@@ -20,10 +29,9 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from portbench.counts import buckets
+from portbench.counts import arch as arch_lib, buckets
 from portbench.counts.arch import Arch
 from portbench.harness.weights import sort_key
-from portbench.reference import model
 from portbench.reference.precision import PRODUCTS
 
 BLOCK = 256
@@ -75,6 +83,8 @@ def follow(a: Arch, weights: Dict[str, torch.Tensor], batches: Sequence[Dict[str
     """Follow ``len(batches)`` steps from ``weights`` (any dtype; held in
     float32 here).  ``precision="fp8"`` is the control; ``half`` plants the
     half-batch fault."""
+    ref = arch_lib.module(a, "reference")
+    after_update = getattr(ref, "after_update", None)
     mm = PRODUCTS[precision]
     opt, comm = traffic["optimizer"], traffic["comm"]
     b1, b2, eps, wd = opt["b1"], opt["b2"], opt["eps"], opt["weight_decay"]
@@ -95,10 +105,13 @@ def follow(a: Arch, weights: Dict[str, torch.Tensor], batches: Sequence[Dict[str
         # trains on all of them and their identical gradients average to one
         shards = world if tokens.shape[0] % world == 0 else 1
         rows = tokens.shape[0] // shards
-        per_rank, loss_sum = [], 0.0
+        per_rank, extras, loss_sum = [], [], 0.0
         for r in range(shards):
             sl = slice(r * rows, (r + 1) * rows)
-            value = model.loss(dict(zip(paths, p)), tokens[sl], labels[sl], a, mm, half)
+            value = ref.loss(dict(zip(paths, p)), tokens[sl], labels[sl], a, mm, half)
+            if isinstance(value, tuple):
+                value, extra = value
+                extras.append(extra)
             per_rank.append(torch.autograd.grad(value, p))
             loss_sum += float(value.detach())
         losses.append(loss_sum / len(per_rank))
@@ -120,6 +133,10 @@ def follow(a: Arch, weights: Dict[str, torch.Tensor], batches: Sequence[Dict[str
                     upd.add_(w, alpha=wd)
                 w.copy_((w - lr * upd).to(stored))
             del g
+            if after_update is not None:
+                after_update(dict(zip(paths, p)), extras, a)
+                for w in p:
+                    w.copy_(w.to(stored))
     with torch.no_grad():
         change = [float(torch.linalg.vector_norm(w - weights[k].float())) for k, w in zip(paths, p)]
     return Readings(paths, losses, grad_norms, change)

@@ -45,8 +45,9 @@ def test_the_reference_agrees_with_the_program(tiny_root, cell_name, seed):
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-def test_the_tf32_control_is_not_correct(tiny_root, seed):
-    cell = spec.load("tiny-dense.train-s128x2", tiny_root)
+@pytest.mark.parametrize("cell_name", sorted(TINY_CELLS))
+def test_the_tf32_control_is_not_correct(tiny_root, cell_name, seed):
+    cell = spec.load(cell_name, tiny_root)
     ref = trainer.reference_readings(cell, seed, CPU, 1)
     control = trainer.reference_readings(cell, seed, CPU, 1, "tf32")
     correct, rows = check.verdict(check.gaps(control, ref), spec.limits(cell))
@@ -71,15 +72,16 @@ def _half(step_fn):
     return step
 
 
+@pytest.mark.parametrize("cell_name", sorted(TINY_CELLS))
 @pytest.mark.parametrize("fault", [_unchanged, _half], ids=["state_unchanged", "half_batch"])
-def test_a_broken_step_is_not_correct(tiny_root, monkeypatch, fault):
+def test_a_broken_step_is_not_correct(tiny_root, monkeypatch, fault, cell_name):
     build = trainer.Program.__init__
 
     def broken(self, *args, **kwargs):
         build(self, *args, **kwargs)
         self.step_fn = fault(self.step_fn)
     monkeypatch.setattr(trainer.Program, "__init__", broken)
-    out = _run(tiny_root, "tiny-dense.train-s128x2", 1)
+    out = _run(tiny_root, cell_name, 1)
     assert not out["correct"], out["checks"]
 
 
@@ -98,7 +100,9 @@ def test_nothing_loads_jax_or_the_jax_package_and_the_reference_loads_no_program
 import sys
 sys.path[:0] = [{repo!r}, {src!r}]
 import portbench.reference.model, portbench.reference.train, portbench.reference.precision
-import portbench.counts.flops, portbench.counts.bounds, portbench.counts.buckets
+import portbench.reference.mla
+import portbench.counts.flops, portbench.counts.flops_mla, portbench.counts.bounds
+import portbench.counts.buckets
 ref_top = {{m.split(".")[0] for m in sys.modules}}
 import portbench.calibrate
 import portbench.harness.trainer, portbench.harness.ranks

@@ -10,12 +10,15 @@ keys that let a configuration bring a block of its own as files:
 - ``reference``: the plain reference, a module under ``portbench/``
   (default ``reference/model.py``, which knows multi-head attention only)
   with ``leaves(arch)`` and ``loss(params, tokens, labels, arch, mm,
-  half)``, and optionally ``init(path)`` and ``after_update(params,
-  extras, arch)`` (``harness/weights.py``, ``reference/train.py``);
+  half)``, and optionally ``init(path)``, ``after_update(params, extras,
+  arch)`` and ``ruled_leaves(arch)``, the leaves that ``after_update``
+  alone moves (``harness/weights.py``, ``reference/train.py``,
+  ``harness/check.py``);
 - ``counts``: the model-FLOP count, a module under ``portbench/`` with
   ``forward_flops(arch, batch, seq)`` (default ``counts/flops.py``);
 - ``program``: keyword arguments of the program's ``ModelConfig`` set on
-  top of what ``harness/spec.model_config`` builds from the sizes.
+  top of what ``harness/spec.model_config`` builds from the sizes, and
+  under ``moe`` those of its ``MoEConfig`` (the router's settings).
 
 ``assumed`` in the same file says, in words, where that block departs from
 the published one.  ``Arch`` carries the file's published keys and its

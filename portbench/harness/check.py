@@ -13,6 +13,10 @@ reference's, by three numbers, each against its limit in the cell's file.
 - ``change_gap``: the same for each leaf's change over the steps followed,
   leaving out leaves whose reference gradient is under a thousandth of the
   median leaf's (AdamW moves those by round-off alone);
+- a leaf that the reference moves by a rule and not by its gradient
+  (``Readings.ruled``: a router's correction bias) is left out of
+  ``grad_gap`` and its median, on both sides, and always kept in
+  ``change_gap`` and its median, whatever its gradient: a wrong rule fails;
 - ``grad_gap_median``, ``change_gap_median``: the median leaf's gap of
   each, which is steady from seed to seed where the worst leaf swings: in
   an MoE layer a token whose top-k experts tie to round-off is routed one
@@ -54,13 +58,15 @@ def gaps(prog, ref) -> Dict[str, Tuple[float, str]]:
         raise ValueError("the program's leaves are not the reference's")
     first = abs(prog.losses[0] - ref.losses[0]) / abs(ref.losses[0])
     loss = (first if math.isfinite(first) else math.inf, "step 1")
-    every = list(range(len(ref.paths)))
-    median_g = statistics.median(ref.grad_norms)
-    moved = [i for i in every if ref.grad_norms[i] >= ROUND_OFF_ONLY * median_g]
-    grad = _leaf_gaps(prog.grad_norms, ref.grad_norms, every)
+    ruled = set(ref.ruled)
+    graded = [i for i, k in enumerate(ref.paths) if k not in ruled]
+    median_g = statistics.median([ref.grad_norms[i] for i in graded])
+    moved = [i for i, k in enumerate(ref.paths)
+             if k in ruled or ref.grad_norms[i] >= ROUND_OFF_ONLY * median_g]
+    grad = _leaf_gaps(prog.grad_norms, ref.grad_norms, graded)
     change = _leaf_gaps(prog.change_norms, ref.change_norms, moved)
     return {"loss_gap": loss,
-            "grad_gap": _worst(grad, every, ref.paths),
+            "grad_gap": _worst(grad, graded, ref.paths),
             "change_gap": _worst(change, moved, ref.paths),
             "grad_gap_median": (statistics.median(grad), "median leaf"),
             "change_gap_median": (statistics.median(change), "median leaf")}

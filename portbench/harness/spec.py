@@ -4,7 +4,8 @@ to it in files of their own:
 - ``portbench/configs/<config>.json``: the model (``counts.arch``), and in
   its ``port`` the modules under ``portbench/`` of its plain reference
   (``port.reference``) and of its FLOP count (``port.counts``), and the
-  program's settings for its block (``port.program``);
+  program's settings for its block (``port.program``, its router's under
+  ``port.program.moe``);
 - ``portbench/traffic/<mix>.json``: the traffic and the training recipe;
 - ``portbench/cells/<workload>.json``: ``world`` (data-parallel ranks, one
   a card; 1 if absent), the steps the reference follows, the traced steps
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 from pathlib import Path
 from typing import Dict, List
 
@@ -81,10 +82,18 @@ def reader(name: str, root: Path = ROOT):
 
 def model_config(cell: Cell):
     """The program's ``ModelConfig`` for the cell's configuration file: its
-    sizes, then the file's ``port.program`` keyword arguments on top."""
+    sizes, then the file's ``port.program`` keyword arguments on top, and
+    ``port.program.moe``'s on top of the ``MoEConfig``."""
     from repro_torch.configs.base import ModelConfig, MoEConfig
 
     a = cell.arch
+    program = dict(a.port.get("program", {}))
+    moe_kw = program.pop("moe", None)
+    if moe_kw is not None and a.moe is None:
+        raise ValueError(f"{cell.config}: port.program.moe on a configuration without experts")
+    moe_kw = dict(moe_kw or {})
+    _known(cell, "port.program", program, ModelConfig)
+    _known(cell, "port.program.moe", moe_kw, MoEConfig)
     moe = None
     if a.moe is not None:
         m = a.moe
@@ -92,18 +101,21 @@ def model_config(cell: Cell):
                         d_ff_expert=m.d_ff_expert, every=m.every, first_dense=m.first_dense,
                         capacity_factor=m.capacity_factor, router_z_loss=m.router_z_loss,
                         load_balance_loss=m.load_balance_loss)
+        moe = replace(moe, **moe_kw)
     cfg = ModelConfig(
         name=cell.config, family="moe" if moe else "dense", num_layers=a.n_layers,
         d_model=a.d_model, num_heads=a.n_heads, num_kv_heads=a.n_kv_heads, d_ff=a.d_ff,
         vocab_size=a.vocab, head_dim=a.head_dim, moe=moe, rope_theta=a.rope_theta,
         norm_eps=a.norm_eps, tie_embeddings=a.tie_embeddings, logit_chunk=a.logit_chunk,
         dtype=a.dtype, remat_policy=cell.traffic["remat_policy"], source=a.source)
-    program = dict(a.port.get("program", {}))
-    unknown = sorted(set(program) - {f.name for f in fields(ModelConfig)})
-    if unknown:
-        raise ValueError(f"{cell.config}: port.program names {unknown}, which the program's "
-                         f"ModelConfig does not have")
     return cfg.replace(**program)
+
+
+def _known(cell: Cell, where: str, kw: dict, cls) -> None:
+    unknown = sorted(set(kw) - {f.name for f in fields(cls)})
+    if unknown:
+        raise ValueError(f"{cell.config}: {where} names {unknown}, which the program's "
+                         f"{cls.__name__} does not have")
 
 
 def limits(cell: Cell) -> Dict[str, float]:

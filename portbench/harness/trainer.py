@@ -32,7 +32,7 @@ from portbench.counts import arch as arch_lib
 from portbench.harness import check, spec, traffic as traffic_lib, weights
 from portbench.harness.tracing import STEP, Spans, name_gaps, reduce_profile
 from portbench.harness.window import Window
-from portbench.reference.train import Readings, follow
+from portbench.reference.train import Readings, follow, ruled_leaves
 
 
 TRACE_FROM = 1          # the window's first step, untraced, then the cell's traced steps
@@ -40,6 +40,12 @@ TRACE_FROM = 1          # the window's first step, untraced, then the cell's tra
 
 def _norm(t: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(t.float()))
+
+
+def _no_moment(path: str, ruled) -> float:
+    if path not in ruled:
+        raise KeyError(f"the optimizer's state holds no moment of {path}, which AdamW moves")
+    return 0.0
 
 
 def program_leaves(cell: spec.Cell):
@@ -74,6 +80,7 @@ class Program:
 
         t = cell.traffic
         self.api, meta, self.leaves = program_leaves(cell)
+        self.ruled = ruled_leaves(cell.arch)
         self.world, self.device = train_mod.build_world(device)
         w = weights.make(self.leaves, seed, self.device, getattr(torch, cell.arch.dtype),
                          getattr(arch_lib.module(cell.arch, "reference"), "init", None))
@@ -103,17 +110,24 @@ class Program:
         return float(loss)
 
     def checked_steps(self, n: int, b1: float) -> Readings:
-        """The first ``n`` steps, with the program's readings."""
-        from repro_torch.utils.tree import tree_leaves
+        """The first ``n`` steps, with the program's readings.  A leaf that
+        the reference moves by a rule may have no moment in the optimizer's
+        state; its first gradient then reads 0 (``check.gaps`` reads none
+        of a ruled leaf's)."""
+        from repro_torch.utils.tree import tree_leaves, tree_paths
 
+        paths = [p for p, _ in self.leaves]
         start = [p.clone() for p in tree_leaves(self.params)]
         losses, grads = [], []
         for i in range(n):
             losses.append(self.step())
             if i == 0:
-                grads = [_norm(m) / (1.0 - b1) for m in tree_leaves(self.opt_state.mu)]
+                mu = self.opt_state.mu
+                moments = {k: m for k, m in zip(tree_paths(mu), tree_leaves(mu)) if m is not None}
+                grads = [_norm(moments[k]) / (1.0 - b1) if k in moments
+                         else _no_moment(k, self.ruled) for k in paths]
         change = [_norm(p.float() - s.float()) for p, s in zip(tree_leaves(self.params), start)]
-        return Readings([p for p, _ in self.leaves], losses, grads, change)
+        return Readings(paths, losses, grads, change, self.ruled)
 
     def close(self):
         """Stop the feed, free the state, and leave the process group."""

@@ -19,12 +19,15 @@ arXiv:2412.19437 §2.1.2) is the reference's: its ``loss`` returns
 ``(loss, extra)`` in place of the loss, and its ``after_update(params,
 extras, arch)`` is called after AdamW each step with ``{path: float32
 weight}`` and every rank's ``extra``, to change the weights in place;
-they are then rounded to the stored dtype again.
+they are then rounded to the stored dtype again.  The leaves that its
+``ruled_leaves(arch)`` names are moved by that rule alone: no gradient is
+taken of them (they travel in the sync as zeros, in their place in the
+bucket plan), and they get no AdamW moment, update or weight decay.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +46,7 @@ class Readings:
     losses: List[float]
     grad_norms: List[float]        # each leaf's first gradient, as AdamW gets it
     change_norms: List[float]      # each leaf's change over the steps followed
+    ruled: Tuple[str, ...] = ()    # leaves moved by the reference's rule, not by AdamW
 
 
 def int8_round_trip(flat: torch.Tensor) -> torch.Tensor:
@@ -85,6 +89,7 @@ def follow(a: Arch, weights: Dict[str, torch.Tensor], batches: Sequence[Dict[str
     half-batch fault."""
     ref = arch_lib.module(a, "reference")
     after_update = getattr(ref, "after_update", None)
+    ruled = ruled_leaves(a)
     mm = PRODUCTS[precision]
     opt, comm = traffic["optimizer"], traffic["comm"]
     b1, b2, eps, wd = opt["b1"], opt["b2"], opt["eps"], opt["weight_decay"]
@@ -92,8 +97,12 @@ def follow(a: Arch, weights: Dict[str, torch.Tensor], batches: Sequence[Dict[str
     stored = getattr(torch, a.dtype)
     itemsize = torch.empty((), dtype=stored).element_size()
     paths = sorted(weights, key=sort_key)
+    if not set(ruled) <= set(paths):
+        raise ValueError(f"{a.name}: ruled_leaves names {sorted(set(ruled) - set(paths))}, "
+                         f"which are not leaves")
+    graded = [i for i, k in enumerate(paths) if k not in ruled]
     device = weights[paths[0]].device
-    p = [weights[k].to(torch.float32, copy=True).requires_grad_(True) for k in paths]
+    p = [weights[k].to(torch.float32, copy=True).requires_grad_(k not in ruled) for k in paths]
     mu = [torch.zeros_like(t) for t in p]
     nu = [torch.zeros_like(t) for t in p]
     losses: List[float] = []
@@ -112,7 +121,7 @@ def follow(a: Arch, weights: Dict[str, torch.Tensor], batches: Sequence[Dict[str
             if isinstance(value, tuple):
                 value, extra = value
                 extras.append(extra)
-            per_rank.append(torch.autograd.grad(value, p))
+            per_rank.append(_grads(value, p, [k in ruled for k in paths]))
             loss_sum += float(value.detach())
         losses.append(loss_sum / len(per_rank))
         with torch.no_grad():
@@ -125,7 +134,8 @@ def follow(a: Arch, weights: Dict[str, torch.Tensor], batches: Sequence[Dict[str
                 grad_norms = [float(torch.linalg.vector_norm(t)) for t in g]
             c = torch.tensor(float(step + 1))
             bc1, bc2 = 1.0 - b1 ** c, 1.0 - b2 ** c
-            for w, gi, m, v in zip(p, g, mu, nu):
+            for i in graded:
+                w, gi, m, v = p[i], g[i], mu[i], nu[i]
                 m.mul_(b1).add_(gi, alpha=1 - b1)
                 v.mul_(b2).add_(gi * gi, alpha=1 - b2)
                 upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
@@ -139,4 +149,20 @@ def follow(a: Arch, weights: Dict[str, torch.Tensor], batches: Sequence[Dict[str
                     w.copy_(w.to(stored))
     with torch.no_grad():
         change = [float(torch.linalg.vector_norm(w - weights[k].float())) for k, w in zip(paths, p)]
-    return Readings(paths, losses, grad_norms, change)
+    return Readings(paths, losses, grad_norms, change, ruled)
+
+
+def _grads(value: torch.Tensor, p: Sequence[torch.Tensor],
+           ruled: Sequence[bool]) -> List[torch.Tensor]:
+    """The gradient of ``value`` for every leaf, zeros for a ruled one.  A
+    function of its own, so that nothing but the list it returns holds the
+    gradients once the sync has taken them."""
+    got = iter(torch.autograd.grad(value, [w for w, r in zip(p, ruled) if not r]))
+    return [torch.zeros_like(w) if r else next(got) for w, r in zip(p, ruled)]
+
+
+def ruled_leaves(a: Arch) -> Tuple[str, ...]:
+    """The leaves the configuration's reference moves by its rule alone
+    (its ``ruled_leaves(arch)``; none where it defines none)."""
+    rule = getattr(arch_lib.module(a, "reference"), "ruled_leaves", None)
+    return tuple(rule(a)) if rule is not None else ()

@@ -1,6 +1,7 @@
 """A configuration names its own reference, FLOP count and program
 settings in ``port``; one that names none gets what every configuration
 got before, to the bit."""
+import dataclasses
 import json
 from pathlib import Path
 
@@ -9,11 +10,12 @@ import torch
 
 from conftest import REPO, TINY_CELLS
 from portbench.counts import arch, flops, flops_mla
-from portbench.harness import spec, weights
+from portbench.harness import spec, trainer, weights
 from portbench.reference import model
 from portbench.reference.train import follow
 
-CONFIGS = sorted((REPO / "portbench/configs").glob("*.json"))
+FILES = {p.stem: p for p in sorted((REPO / "portbench/configs").glob("*.json"))}
+TINY_CONFIGS = dict(TINY_CELLS.values())
 TRAFFIC = json.loads((REPO / "portbench/traffic/train-s4096-int8.json").read_text())
 CPU = torch.device("cpu")
 
@@ -66,19 +68,54 @@ def _pinned_model_config(cell):
         dtype=a.dtype, remat_policy=cell.traffic["remat_policy"], source=a.source)
 
 
-@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.stem)
-def test_model_config_is_todays_for_every_configuration_file(path):
-    cell = _cell(arch.load(path))
-    assert spec.model_config(cell) == _pinned_model_config(cell)
+def _arch_of(name: str) -> arch.Arch:
+    """Each file in ``portbench/configs`` by its stem, then each tiny cell's
+    configuration by its name."""
+    if name in FILES:
+        return arch.load(FILES[name])
+    return arch.from_dict(TINY_CONFIGS[name], name)
 
 
-@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.stem)
-def test_every_configuration_file_takes_the_default_reference_and_count(path):
-    a = arch.load(path)
-    assert arch.module(a, "reference") is model
-    assert arch.module(a, "counts") is flops
-    assert flops.step_flops(a, 1, 4096) == 3.0 * flops.forward_flops(a, 1, 4096)
+def _names_its_block(a: arch.Arch) -> bool:
+    return any(role in a.port for role in ("reference", "counts", "program"))
+
+
+@pytest.mark.parametrize("name", [*FILES, *TINY_CONFIGS])
+def test_model_config_is_todays_for_every_configuration_file(name):
+    cell = _cell(_arch_of(name))
+    if not _names_its_block(cell.arch):
+        assert spec.model_config(cell) == _pinned_model_config(cell)
+        return
+    # the pin, then the file's port.program on top: the router's under moe
+    pinned = _pinned_model_config(cell)
+    program = dict(cell.arch.port.get("program", {}))
+    moe = program.pop("moe", None)
+    if moe is not None:
+        program["moe"] = dataclasses.replace(pinned.moe, **moe)
+    assert spec.model_config(cell) == pinned.replace(**program)
+
+
+@pytest.mark.parametrize("name", [*FILES, *TINY_CONFIGS])
+def test_every_configuration_file_takes_the_default_reference_and_count(name):
+    a = _arch_of(name)
     assert not hasattr(model, "init") and not hasattr(model, "after_update")
+    assert not hasattr(model, "ruled_leaves")
+    if not _names_its_block(a):
+        assert arch.module(a, "reference") is model
+        assert arch.module(a, "counts") is flops
+        assert flops.step_flops(a, 1, 4096) == 3.0 * flops.forward_flops(a, 1, 4096)
+        return
+    # a file that names its block is held to what it names
+    mods = {role: arch.module(a, role) for role in ("reference", "counts")}
+    for role, default in (("reference", model), ("counts", flops)):
+        if role in a.port:
+            assert Path(mods[role].__file__).resolve() == (arch.HERE / a.port[role]).resolve()
+        else:
+            assert mods[role] is default
+    assert flops.step_flops(a, 1, 4096) == 3.0 * mods["counts"].forward_flops(a, 1, 4096)
+    _, _, leaves = trainer.program_leaves(_cell(a))
+    expected = mods["reference"].leaves(a)
+    assert leaves == sorted(expected, key=lambda ps: weights.sort_key(ps[0]))
 
 
 def test_arch_carries_the_published_keys_read_only_and_stays_hashable():
@@ -177,3 +214,23 @@ def test_the_post_update_hook_is_called_each_step_with_the_loss_extras(tmp_path)
     # the hook's +0.5 a step and element, beside AdamW's 3e-4
     i = readings.paths.index("final_norm.w")
     assert readings.change_norms[i] == pytest.approx(1.5 * a.d_model ** 0.5, rel=1e-2)
+
+
+def test_program_moe_settings_apply_to_the_router():
+    cfg = json.loads(json.dumps(TINY_CONFIGS["tiny-moe"]))
+    cfg["port"]["program"] = {"moe": {"capacity_factor": 2.0, "router_z_loss": 0.0}}
+    cell = _cell(arch.from_dict(cfg, "tiny-moe"))
+    pinned = _pinned_model_config(cell)
+    assert spec.model_config(cell) == pinned.replace(
+        moe=dataclasses.replace(pinned.moe, capacity_factor=2.0, router_z_loss=0.0))
+
+
+@pytest.mark.parametrize("config, moe, match", [
+    ("tiny-moe", {"capacity_factor": 2.0, "scoring_func": "sigmoid"}, r"\['scoring_func'\]"),
+    ("tiny-dense", {}, "without experts"),
+    ("tiny-dense", {"capacity_factor": 2.0}, "without experts")])
+def test_program_moe_raises_on_an_unknown_name_or_a_dense_configuration(config, moe, match):
+    cfg = json.loads(json.dumps(TINY_CONFIGS[config]))
+    cfg["port"]["program"] = {"moe": moe}
+    with pytest.raises(ValueError, match=match):
+        spec.model_config(_cell(arch.from_dict(cfg, config)))
